@@ -1,0 +1,222 @@
+"""Layer stack: parameter init, offline compression, caches and the
+per-layer forward (port of the global-attention subset of
+``repro/models/transformer.py``).
+
+Parameters are plain dicts of tensors with one dict per layer under
+``params["layers"]`` (the JAX package's scanned segments become a Python
+loop).  Only the layers the compressed-MoE slice runs are ported: a
+global-attention mixer followed by an MoE FFN.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import torch
+
+from .. import resolve_device
+from ..config import ModelConfig
+from .attention import attention, decode_attention
+from .kvcache import (dequant_scales, init_attn_cache, prefill_attn_cache,
+                      update_attn_cache)
+from .layers import apply_rope, dense_init, embed_init, rms_norm
+from .moe import RoutingInfo, moe_apply
+
+
+class LayerSpec(NamedTuple):
+    mixer: str          # global (the only mixer of this slice)
+    ffn: str            # moe
+
+
+@dataclasses.dataclass
+class ExecContext:
+    """Runtime knobs threaded through the forward pass."""
+    mode: str = "train"              # train | prefill | step
+    quantized: bool = False          # serve on compressed experts
+    exact_capacity: bool = False     # drop-free MoE (C = T)
+    # expert/attention kernel dispatch: 'auto' | 'cuda' | 'ref'
+    kernel_impl: Optional[str] = None
+    # return per-MoE-layer routing (top-k ids and router probs)
+    collect_trace: bool = False
+
+
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    specs = []
+    for i in range(cfg.num_layers):
+        mixer = cfg.layer_kind(i)
+        moe = cfg.moe is not None and cfg.is_moe_layer(i) and not (
+            i == 0 and cfg.first_layer_dense)
+        if mixer != "global" or not moe:
+            raise NotImplementedError(
+                f"layer {i} of {cfg.name} is ({mixer}, "
+                f"{'moe' if moe else 'dense'}); the port runs global "
+                "attention + MoE layers only")
+        if cfg.moe.num_shared_experts or cfg.qkv_bias or cfg.post_attn_norm:
+            raise NotImplementedError(
+                f"{cfg.name}: shared experts, qkv bias and post-attention "
+                "norms are not ported")
+        specs.append(LayerSpec(mixer, "moe"))
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, device, dtype):
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    m = cfg.moe
+    fe, ne = m.d_expert, m.num_experts
+
+    def di(shape, fan_in, dt=dtype):
+        return dense_init(shape, fan_in, gen, device, dt)
+
+    return {
+        "pre_norm": torch.zeros((d,), dtype=dtype, device=device),
+        "attn": {"wq": di((d, h, hd), d), "wk": di((d, kv, hd), d),
+                 "wv": di((d, kv, hd), d), "wo": di((h, hd, d), h * hd)},
+        "ffn_norm": torch.zeros((d,), dtype=dtype, device=device),
+        "moe": {"router": di((d, ne), d, torch.float32),
+                "w1": di((ne, d, fe), d), "w3": di((ne, d, fe), d),
+                "w2": di((ne, fe, d), fe)},
+    }
+
+
+@torch.no_grad()
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
+                device=None) -> Dict:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``
+    (default: the CUDA device; raises if there is none)."""
+    dev = resolve_device(device)
+    layer_specs(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: Dict[str, Any] = {
+        "embed": {"tok": embed_init((cfg.vocab_size, cfg.d_model), gen, dev,
+                                    dtype)},
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": dense_init((cfg.d_model, cfg.vocab_size),
+                                          cfg.d_model, gen, dev, dtype)}
+    params["layers"] = [_init_layer(gen, cfg, dev, dtype)
+                        for _ in range(cfg.num_layers)]
+    return params
+
+
+@torch.no_grad()
+def compress_moe_params(params, cfg: ModelConfig, qcfg=None):
+    """Compress every MoE layer's experts for quantized serving: w1/w3/w2
+    become ``CompressedExpertStack``s under ``moe["stacks"]``.
+
+    Runs on the device the weights live on.  Returns ``(qparams, cfg_q,
+    stacks_by_layer)`` like the JAX package (``cfg_q`` has
+    ``force_unroll_plan`` set); ``params`` itself is not modified."""
+    from ..core.pipeline import compress_ffn_weights
+    qcfg = qcfg or cfg.moe.quant
+    layers, stacks_by_layer = [], []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        mp = dict(lp["moe"])
+        stacks, _ = compress_ffn_weights(mp.pop("w1"), mp.pop("w2"),
+                                         mp.pop("w3"), qcfg)
+        stacks_by_layer.append(stacks)
+        mp["stacks"] = stacks
+        lp["moe"] = mp
+        layers.append(lp)
+    qparams = dict(params)
+    qparams["layers"] = layers
+    return (qparams, dataclasses.replace(cfg, force_unroll_plan=True),
+            stacks_by_layer)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device=None) -> Dict:
+    return {"layers": [init_attn_cache(batch, max_len, cfg.num_kv_heads,
+                                       cfg.head_dim, dtype,
+                                       kv_bits=cfg.kv_bits, device=device)
+                       for _ in layer_specs(cfg)],
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def mask_cache_padding(cfg: ModelConfig, caches: Dict, plen: torch.Tensor
+                       ) -> Dict:
+    """Invalidate cache entries written by right-padded prefill tokens:
+    position planes at positions >= plen become -1 and the per-row decode
+    position is pinned to plen (in place)."""
+    lim = plen.to(torch.int32)[:, None]
+    for c in caches["layers"]:
+        c["pos"].masked_fill_(c["pos"] >= lim, -1)
+    caches["pos"] = plen.to(torch.int32)
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# layer application
+# ---------------------------------------------------------------------------
+
+def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, positions, cache):
+    q = torch.einsum("bsd,dhk->bshk", x, ap["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, ap["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, ap["wv"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if ctx.mode == "step":
+        upd = update_attn_cache(cache, k, v, positions)
+        ks, vs = dequant_scales(upd)
+        out = decode_attention(q, upd["k"], upd["v"], upd["pos"], positions,
+                               k_scale=ks, v_scale=vs, impl=ctx.kernel_impl)
+    else:
+        out = attention(q, k, v, positions, positions, causal=True)
+        if ctx.mode == "prefill" and cache is not None:
+            prefill_attn_cache(cache, k, v, positions)
+    return torch.einsum("bshk,hkd->bsd", out, ap["wo"])
+
+
+def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
+                positions, cache, plan_row=None):
+    """One transformer layer.  Returns (x, aux, routing info)."""
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    x = x + _attn_layer(h, p["attn"], cfg, ctx, positions, cache)
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    mp = p["moe"]
+    b, s, d = h.shape
+    y2, aux, info = moe_apply(
+        h.reshape(-1, d), mp, cfg.moe, act=cfg.act,
+        quantized=ctx.quantized and "stacks" in mp,
+        exact_capacity=ctx.exact_capacity, impl=ctx.kernel_impl,
+        plan=plan_row, with_aux=ctx.mode == "train")
+    return x + y2.reshape(b, s, d), aux, info
+
+
+def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
+                caches=None, plan=None):
+    """Run every layer.  Returns (x, aux, new_caches, trace, probs).
+
+    ``trace`` is the stacked (moe_layers, T, k) int32 router top-k ids in
+    layer order and ``probs`` the (moe_layers, T, E) router
+    probabilities, both when ``ctx.collect_trace`` is set (else None).
+    ``plan``: optional (moe_layers, 2) [top_n, rank_cap] rows."""
+    use_cache = caches is not None and ctx.mode in ("prefill", "step")
+    aux = {"load_balance": 0.0, "router_z": 0.0}
+    infos: List[RoutingInfo] = []
+    for li, (lp, spec) in enumerate(zip(params["layers"], layer_specs(cfg))):
+        x, a, info = apply_layer(
+            x, lp, spec, cfg, ctx, positions,
+            caches["layers"][li] if use_cache else None,
+            plan_row=None if plan is None else plan[li])
+        for key, val in a.items():
+            aux[key] = aux[key] + val    # empty outside training
+        infos.append(info)
+    new_caches = None
+    if use_cache:
+        new_caches = {"layers": caches["layers"],
+                      "pos": (positions[:, -1] + 1).to(torch.int32)}
+    trace = probs = None
+    if ctx.collect_trace and infos:
+        trace = torch.stack([i.topk_idx.to(torch.int32) for i in infos])
+        probs = torch.stack([i.probs for i in infos])
+    return x, aux, new_caches, trace, probs
