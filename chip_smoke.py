@@ -5,17 +5,22 @@
 
 Phases:
   1. preflight  the card's name and power limit; build the CUDA kernels
-                from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a)
+                from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
+                one nvcc per source, in parallel
   2. kernels    hold each kernel against its plain PyTorch version on the
-                card, at the shapes of the Mixtral-8x7B serving path
+                card, at the shapes of the Mixtral-8x7B and Llama-3.2-3B
+                serving paths
   3. slice      Mixtral-8x7B at its published widths, depth cut to 2
                 layers, random f32 weights from a seeded generator:
                 compress on the card, ``ServeEngine.generate`` through
                 the kernels, and hold its teacher-forced logits and
                 router choices against the same engine with impl='ref'
-  4. timing     each kernel, its plain version and (where one exists) a
-                PyTorch library call computing the same function, at
-                decode shapes, beside its bound
+  4. timing     each MoE-path kernel, its plain version and (where one
+                exists) a PyTorch library call computing the same
+                function, beside its bound
+  5. dense      Llama-3.2-3B at its published config (28 layers, dense
+                FFNs compressed to E = 1 stacks): the same as phase 3,
+                then the dense-path kernels timed as in phase 4
 
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -48,7 +53,7 @@ FUSED_TOL = dict(atol=1e-3, rtol=1e-4)
 # flash-decode: f32 online softmax in another order than softmax()
 DECODE_TOL = dict(atol=2e-5, rtol=2e-5)
 # served logits, kernel engine vs impl='ref' engine, f32 through 2
-# layers: max |diff| <= LOGIT_TOL * max |ref logit|
+# (Mixtral) or 28 (Llama) layers: max |diff| <= LOGIT_TOL * max |ref logit|
 LOGIT_TOL = 1e-3
 # router choices may differ only where the two probabilities compared
 # are this close (a near-tie flipped by f32 rounding)
@@ -81,50 +86,37 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> dict:
     """Time of one call of ``fn`` on the card, with the L2 cache
     overwritten before each call (decode reads its weights cold).
 
-    ``device``: the median over calls of the summed durations of the
-    kernels ``fn`` launched, from ``torch.profiler``'s CUDA trace (the
-    flush kernel excluded); None if the trace holds no device time.
-    ``wall``: CUDA events around each call, which also count the host's
-    time to launch the call's kernels when the card waits on it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``device``: the median over calls of the time between two CUDA events
+    around the call, taken while the card runs only this work: a spin
+    kernel (``torch.cuda._sleep``) holds the stream until the host has
+    queued the flush, the events and all of the call's kernels, so the
+    events see the kernels back to back and none of the host's launch time.
+    ``wall``: the same events without the spin, which also count the
+    host's time to launch the call's kernels when the card waits on it."""
     fn()
     torch.cuda.synchronize()
-    walls = []
-    for _ in range(iters):
-        flush.bitwise_not_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        walls.append(a.elapsed_time(b))
-    per_call = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    flush.bitwise_not_()
+    fn()
+    enqueue_s = time.perf_counter() - t0          # host time to queue it
+    torch.cuda.synchronize()
+    # cycles of the spin: twice the queueing time plus 0.5 ms at 2 GHz,
+    # above the H100's top clock, so the spin never ends early
+    spin = int((2 * enqueue_s + 5e-4) * 2e9)
+    dev, walls = [], []
+    for held in (True, False):
         for _ in range(iters):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            if held:
+                torch.cuda._sleep(spin)
             flush.bitwise_not_()
-            torch.cuda.synchronize()
-            with torch.profiler.record_function("timed_call"):
-                fn()
-                torch.cuda.synchronize()
-    # the annotation appears twice: on the host timeline (the window a
-    # call's kernels are attributed to) and as a span on the device
-    # timeline, which is not a kernel
-    marks = [ev.time_range for ev in prof.events()
-             if ev.name == "timed_call" and ev.device_type == DeviceType.CPU]
-    kernels = {(ev.name, ev.time_range.start, ev.time_range.end): ev
-               for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA
-               and ev.name != "timed_call"
-               and "bitwise_not" not in ev.name}.values()
-    for m in marks:
-        per_call.append(sum(ev.time_range.elapsed_us() for ev in kernels
-                            if m.start <= ev.time_range.start <= m.end))
-    dev_ms = (float(np.median(per_call)) / 1e3
-              if per_call and max(per_call) > 0 else None)
-    return {"device": dev_ms, "wall": float(np.median(walls))}
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            (dev if held else walls).append(a.elapsed_time(b))
+    return {"device": float(np.median(dev)), "wall": float(np.median(walls))}
 
 
 # ---------------------------------------------------------------------------
@@ -177,13 +169,76 @@ def random_stack_inputs(gen, dev, E, C, K, N, R, bits, gated, rank_mode,
             eb, ranks, rows)
 
 
+def qmm_case_inputs(gen, dev, M, K, N, R, bits, mask_mode="ones", cap=None):
+    """Random arguments of one quant_matmul case: planes (K*p/8, N) u8,
+    g64 scale/zero, int8 U/V with their scales, a mask and a rank cap."""
+    from repro_torch.core.quantize import PLANES
+
+    def rint(lo, hi, shape, dt):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(dt)
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    planes = tuple(rint(0, 256, (K * p // 8, N), torch.uint8)
+                   for p, _ in PLANES[bits])
+    scale = rnd(K // 64, N) * 0.02 + 1e-3
+    zero = rnd(K // 64, N) * ((1 << bits) - 1)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    u = rint(-127, 128, (K, R), torch.int8)
+    v = rint(-127, 128, (R, N), torch.int8)
+    us = rnd(1, R) * 1e-3
+    vs = rnd(R, 1) * 1e-3
+    mask = {"ones": torch.ones((M,), device=dev),
+            "half": (rnd(M) < 0.5).float(),
+            "zeros": torch.zeros((M,), device=dev)}[mask_mode]
+    capt = None if cap is None else torch.tensor([cap], dtype=torch.int32,
+                                                 device=dev)
+    return (x, planes, scale, zero, u, us, v, vs, mask, capt)
+
+
+def qmm_kernel_cases(dev, gen):
+    """Kernel 3 against its plain version: the three Llama-3.2-3B
+    projections at decode (M 4) and prefill (M 1024), 2 bits, rank 32,
+    every token compensated; then other widths, a ragged M, a mask with
+    zeros, a rank cap below R, and no compensation at all."""
+    from repro_torch.kernels import quant_matmul as qm
+    worst = 0.0
+    cases = [(proj, M, K, N, 2, "ones", None)
+             for proj, K, N in (("w1", 3072, 8192), ("w3", 3072, 8192),
+                                ("w2", 8192, 3072))
+             for M in (4, 1024)]
+    cases += [("w1", 4, 3072, 8192, b, "half", 20) for b in (3, 4, 8)]
+    cases += [("w2", 33, 8192, 3072, 3, "half", 20),
+              ("w2", 4, 8192, 3072, 2, "zeros", None),
+              ("w1", 33, 3072, 8192, 4, "ones", 0),
+              ("w1", 1, 3072, 8192, 2, None, None)]
+    for proj, M, K, N, bits, mask_mode, cap in cases:
+        args = qmm_case_inputs(gen, dev, M, K, N, 32, bits,
+                               mask_mode or "ones", cap)
+        if mask_mode is None:           # quant_matmul: no compensation
+            args = args[:4]
+        got = qm.quant_matmul(*args, bits=bits, group_size=64,
+                              require_kernel=True)
+        ref = qm.quant_matmul_plain(*args, bits=bits, group_size=64)
+        name = (f"quant_matmul {proj} M={M} K={K} N={N} bits={bits} R=32 "
+                f"mask={mask_mode} cap={cap}")
+        mx = allclose_report(name, got, ref, **FUSED_TOL)
+        worst = max(worst, mx)
+        log(f"  ok  {name}  max|diff| {mx:.3e}")
+        del args, got, ref
+    return worst
+
+
 def kernel_phase(dev):
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import quant_matmul as qm
     gen = torch.Generator(device=dev).manual_seed(1234)
     E = 8
     shapes = [(4096, 14336), (14336, 4096)]
-    errs = {"fused_expert_matmul": 0.0, "flash_decode_attention": 0.0}
+    errs = {"fused_expert_matmul": 0.0, "flash_decode_attention": 0.0,
+            "quant_matmul": 0.0}
     case = 0
     for K, N in shapes:
         for bits in (2, 3, 4):
@@ -220,34 +275,41 @@ def kernel_phase(dev):
     errs["fused_expert_matmul"] = max(errs["fused_expert_matmul"], mx)
     log(f"  ok  fused per-channel group K={K} N={N}  max|diff| {mx:.3e}")
 
-    B, H, KVH, hd, S = 4, 32, 8, 128, 512
-    for kind in ("f32", "bf16", "int8"):
-        for window, filled in ((None, S * 9 // 16), (S // 4, S * 9 // 16),
-                               (None, 10)):
-            q = torch.randn((B, H, hd), generator=gen, device=dev) \
-                / math.sqrt(hd)
-            k = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
-            v = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
-            ar = torch.arange(S, device=dev, dtype=torch.int32)
-            pos = torch.where(ar < filled, ar, -1)[None].repeat(B, 1)
-            cur = torch.full((B,), filled - 1, dtype=torch.int32, device=dev)
-            ks = vs = None
-            if kind == "bf16":
-                k, v = k.bfloat16(), v.bfloat16()
-            elif kind == "int8":
-                from repro_torch.models.kvcache import _kv_quant
-                k, ks = _kv_quant(k)
-                v, vs = _kv_quant(v)
-            got = fd.flash_decode_attention(q, k, v, pos, cur, ks, vs,
-                                            window=window,
-                                            require_kernel=True)
-            ref = fd.flash_decode_attention_plain(q, k, v, pos, cur, ks, vs,
-                                                  window=window)
-            name = f"flash_decode kv={kind} window={window} filled={filled}"
-            mx = allclose_report(name, got, ref, **DECODE_TOL)
-            errs["flash_decode_attention"] = max(
-                errs["flash_decode_attention"], mx)
-            log(f"  ok  {name}  max|diff| {mx:.3e}")
+    errs["quant_matmul"] = qmm_kernel_cases(dev, gen)
+
+    B, KVH, hd, S = 4, 8, 128, 512
+    flash_cases = [(32, kind, window, filled)      # Mixtral, G = 4
+                   for kind in ("f32", "bf16", "int8")
+                   for window, filled in ((None, 288), (128, 288),
+                                          (None, 10))]
+    flash_cases += [(24, kind, None, filled)       # Llama-3.2-3B, G = 3;
+                    for kind in ("f32", "int8")    # filled 0: no valid slot
+                    for filled in (288, 0)]
+    for H, kind, window, filled in flash_cases:
+        q = torch.randn((B, H, hd), generator=gen, device=dev) / math.sqrt(hd)
+        k = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
+        v = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
+        ar = torch.arange(S, device=dev, dtype=torch.int32)
+        pos = torch.where(ar < filled, ar, -1)[None].repeat(B, 1)
+        cur = torch.full((B,), max(filled, 1) - 1, dtype=torch.int32,
+                         device=dev)
+        ks = vs = None
+        if kind == "bf16":
+            k, v = k.bfloat16(), v.bfloat16()
+        elif kind == "int8":
+            from repro_torch.models.kvcache import _kv_quant
+            k, ks = _kv_quant(k)
+            v, vs = _kv_quant(v)
+        got = fd.flash_decode_attention(q, k, v, pos, cur, ks, vs,
+                                        window=window, require_kernel=True)
+        ref = fd.flash_decode_attention_plain(q, k, v, pos, cur, ks, vs,
+                                              window=window)
+        name = (f"flash_decode H={H} KVH={KVH} kv={kind} window={window} "
+                f"filled={filled}")
+        mx = allclose_report(name, got, ref, **DECODE_TOL)
+        errs["flash_decode_attention"] = max(
+            errs["flash_decode_attention"], mx)
+        log(f"  ok  {name}  max|diff| {mx:.3e}")
     return errs
 
 
@@ -281,58 +343,14 @@ def near_tie(probs_row: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     return all(abs(float(probs_row[e] - kth)) <= NEAR_TIE for e in diff)
 
 
-def slice_phase(dev):
-    from repro_torch.kernels import decode_attention as fd
-    from repro_torch.kernels import quant_matmul as qm
-    from repro_torch.models.transformer import (compress_moe_params,
-                                                init_params)
-    from repro_torch.serve.engine import ServeEngine
-    cfg = slice_config()
-    B, P, NEW = 4, 256, 32
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    qparams, cfg_q, stacks = compress_moe_params(params, cfg)
-    torch.cuda.synchronize()
-    t_comp = time.perf_counter() - t0
-    del params
-    s = stacks[0]["w1"]
-    log(f"  init {t_init:.2f} s; compression {t_comp:.2f} s "
-        f"({len(stacks)} MoE layers x 3 stacks; layer-0 w1 ranks "
-        f"{list(s.ranks)}, pad_rank {s.pad_rank})")
-
-    prompts = np.random.default_rng(0).integers(
-        2, cfg.vocab_size, (B, P)).astype(np.int32)
-    eng = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="auto",
-                      device=dev)
-    eng.generate(prompts[:, :16], max_new=2)          # warm-up
-    qm.launches.reset()
-    fd.launches.reset()
-    res = eng.generate(prompts, max_new=NEW, seed=0)
-    launches = {"fused_expert_matmul": qm.launches.n,
-                "flash_decode_attention": fd.launches.n}
-    log(f"  generate: {B} prompts x {P} tokens, {NEW} new tokens, "
-        f"temperature 0: prefill {res.prefill_s * 1e3:.2f} ms, decode "
-        f"{res.decode_s * 1e3:.2f} ms = {res.decode_tokens_per_s:.2f} tok/s"
-        f"; launches {launches}")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the path was never launched: {launches}")
-    profile_decode(eng, prompts, res.decode_s / NEW)
-    toks = res.tokens
-    if toks.shape != (B, NEW) or not np.all((toks >= 0)
-                                            & (toks < cfg.vocab_size)):
-        fail(f"generated tokens malformed: shape {toks.shape}")
-    if not np.all(np.isfinite(res.logprobs)):
-        fail("non-finite log-probs")
-    n_moe = len(stacks)
-    if res.router_trace.shape != (NEW, n_moe, B, cfg.moe.top_k):
-        fail(f"router trace shape {res.router_trace.shape}")
-
-    # teacher-forced: both engines read the kernel engine's tokens
-    ref = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="ref",
-                      device=dev)
+def teacher_forced(eng, ref, prompts, toks, n_moe: int) -> None:
+    """Both engines prefill the prompts and then read the kernel engine's
+    tokens step by step; their logits must agree within LOGIT_TOL of the
+    reference's largest, and their router choices (MoE layers) outside
+    near-ties.  A row whose router flipped at a near-tie is not compared
+    after that step."""
+    dev = eng.device
+    B, NEW = toks.shape
     lk, ck = eng.prefill(prompts, NEW)
     lr, cr = ref.prefill(prompts, NEW)
     row_ok = np.ones(B, bool)
@@ -373,6 +391,66 @@ def slice_phase(dev):
     log(f"  teacher-forced vs impl='ref': max |dlogit| / max |logit| = "
         f"{worst:.3e} (limit {LOGIT_TOL}); router near-tie flips {flips}; "
         f"rows compared to the end {int(row_ok.sum())}/{B}")
+
+
+def check_generation(res, B, NEW, vocab) -> None:
+    toks = res.tokens
+    if toks.shape != (B, NEW) or not np.all((toks >= 0) & (toks < vocab)):
+        fail(f"generated tokens malformed: shape {toks.shape}")
+    if not np.all(np.isfinite(res.logprobs)):
+        fail("non-finite log-probs")
+
+
+def slice_phase(dev):
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.models.transformer import (compress_moe_params,
+                                                init_params)
+    from repro_torch.serve.engine import ServeEngine
+    cfg = slice_config()
+    B, P, NEW = 4, 256, 32
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, cfg_q, stacks = compress_moe_params(params, cfg)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    del params
+    s = stacks[0]["w1"]
+    log(f"  init {t_init:.2f} s; compression {t_comp:.2f} s "
+        f"({len(stacks)} MoE layers x 3 stacks; layer-0 w1 ranks "
+        f"{list(s.ranks)}, pad_rank {s.pad_rank})")
+
+    prompts = np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (B, P)).astype(np.int32)
+    eng = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="auto",
+                      device=dev)
+    eng.generate(prompts[:, :16], max_new=2)          # warm-up
+    for counter in (qm.launches, qm.qmm_launches, fd.launches):
+        counter.reset()
+    res = eng.generate(prompts, max_new=NEW, seed=0)
+    launches = {"fused_expert_matmul": qm.launches.n,
+                "flash_decode_attention": fd.launches.n,
+                "quant_matmul": qm.qmm_launches.n}
+    log(f"  generate: {B} prompts x {P} tokens, {NEW} new tokens, "
+        f"temperature 0: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+        f"{res.decode_s * 1e3:.2f} ms = {res.decode_tokens_per_s:.2f} tok/s"
+        f"; launches {launches}")
+    if min(launches["fused_expert_matmul"],
+           launches["flash_decode_attention"]) <= 0:
+        fail(f"a kernel of the MoE path was never launched: {launches}")
+    profile_decode(eng, prompts, res.decode_s / NEW)
+    toks = res.tokens
+    check_generation(res, B, NEW, cfg.vocab_size)
+    n_moe = len(stacks)
+    if res.router_trace.shape != (NEW, n_moe, B, cfg.moe.top_k):
+        fail(f"router trace shape {res.router_trace.shape}")
+
+    ref = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="ref",
+                      device=dev)
+    teacher_forced(eng, ref, prompts, toks, n_moe)
     return {"launches": launches, "stacks": stacks, "cfg": cfg_q,
             "prefill_ms": res.prefill_s * 1e3,
             "decode_tok_s": res.decode_tokens_per_s,
@@ -432,19 +510,19 @@ def dispatch_like(gen, dev, E, T, K, top_k, top_n):
 
 
 def _fmt(t: dict) -> str:
-    dev = "not measured" if t["device"] is None else f"{t['device']:.4f} ms"
-    return f"{dev} on the device ({t['wall']:.4f} ms between events)"
+    return (f"{t['device']:.4f} ms on the device ({t['wall']:.4f} ms with "
+            f"the host's launches)")
 
 
 def _ms(name: str, t: dict) -> float:
-    """The device time of the ``kernels`` line.  A trace without device
-    time, or with more device time than a call takes between events (its
-    kernels counted twice), is a failed measurement."""
-    if t["device"] is None:
-        fail(f"{name}: the profiler's trace holds no device time")
+    """The device time of the ``kernels`` line.  No time, or more device
+    time than the call takes with the host's launches, is a failed
+    measurement."""
+    if not t["device"] > 0:
+        fail(f"{name}: no device time measured")
     if t["device"] > 1.5 * t["wall"]:
         fail(f"{name}: device time {t['device']:.4f} ms exceeds the "
-             f"{t['wall']:.4f} ms between events")
+             f"{t['wall']:.4f} ms between unheld events")
     return t["device"]
 
 
@@ -525,6 +603,151 @@ def timing_phase(dev, sl):
     return table
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the dense slice (Llama-3.2-3B, E = 1 stacks)
+# ---------------------------------------------------------------------------
+
+def dense_config():
+    from repro_torch.registry import get_config
+    cfg = get_config("llama3.2-3b")
+    q = cfg.quant
+    log(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}"
+        f"/{cfg.num_kv_heads} kv, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, tied embeddings {cfg.tie_embeddings}, bits "
+        f"{q.bits}, group {q.group_size}, rank_budget {q.rank_budget}")
+    log(f"  depth {cfg.num_layers} layers, as published (no cut)")
+    return cfg
+
+
+def dense_phase(dev):
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.models.transformer import (compress_dense_params,
+                                                init_params)
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dense_config()
+    B, P, NEW = 4, 256, 32
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, cfg_q = compress_dense_params(params, cfg)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    stacks = qparams["layers"][0]["ffn"]["stacks"]
+    log(f"  init {t_init:.2f} s; compression {t_comp:.2f} s "
+        f"({cfg.num_layers} dense layers x 3 E=1 stacks; layer-0 ranks "
+        f"{ {k: st.ranks[0] for k, st in stacks.items()} }); device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after compression")
+
+    prompts = np.random.default_rng(1).integers(
+        2, cfg.vocab_size, (B, P)).astype(np.int32)
+    eng = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="auto",
+                      device=dev)
+    eng.generate(prompts[:, :16], max_new=2)          # warm-up
+    for counter in (qm.launches, qm.qmm_launches, fd.launches):
+        counter.reset()
+    res = eng.generate(prompts, max_new=NEW, seed=0)
+    launches = {"quant_matmul": qm.qmm_launches.n,
+                "flash_decode_attention": fd.launches.n,
+                "fused_expert_matmul": qm.launches.n}
+    log(f"  generate: {B} prompts x {P} tokens, {NEW} new tokens, "
+        f"temperature 0: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+        f"{res.decode_s * 1e3:.2f} ms = {res.decode_tokens_per_s:.2f} tok/s"
+        f"; launches {launches}")
+    if min(launches["quant_matmul"], launches["flash_decode_attention"]) <= 0:
+        fail(f"a kernel of the dense path was never launched: {launches}")
+    profile_decode(eng, prompts, res.decode_s / NEW)
+    check_generation(res, B, NEW, cfg.vocab_size)
+    if res.router_trace is not None:
+        fail("a dense model returned a router trace")
+    ref = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="ref",
+                      device=dev)
+    teacher_forced(eng, ref, prompts, res.tokens, 0)
+    return {"launches": launches, "stacks": stacks, "cfg": cfg_q,
+            "prefill_ms": res.prefill_s * 1e3,
+            "decode_tok_s": res.decode_tokens_per_s,
+            "compress_s": t_comp, "B": B, "P": P, "NEW": NEW}
+
+
+def qmm_bytes_ops(M, K, N, planes, R):
+    """Least bytes and operations of one compensated quant_matmul: x, the
+    packed planes, f32 scale/zero at g64, the int8 U/V of rank R and
+    their scales, the mask, each read once; the output written once."""
+    nb = (4 * M * K + sum(p.numel() for p in planes) + 2 * 4 * (K // 64) * N
+          + R * (K + N) + 8 * R + 4 * M + 4 * M * N)
+    return nb, 2 * M * K * N + 2 * M * R * (K + N)
+
+
+def dense_timing(dev, sl):
+    """Kernel 3 on the dense slice's layer-0 stacks at decode (M = B) and
+    prefill (M = B*P), every token compensated, beside its plain version,
+    its bound, and (context only) cuBLAS ``x @ W`` on the dequantized f32
+    weight; and flash-decode at the dense slice's decode shape (G = 3)."""
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels.ref import dequant_ref
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cfg = sl["cfg"]
+    B = sl["B"]
+    table = {}
+    for proj in ("w1", "w3", "w2"):
+        st = sl["stacks"][proj]
+        qt = ops.stack_member(st, 0)
+        K, N = qt.shape
+        w = dequant_ref(qt.planes, qt.scale, qt.zero, qt.bits, qt.group_size)
+        for M in (B, B * sl["P"]):
+            x = torch.randn((M, K), generator=gen, device=dev)
+            args = (x, qt.planes, qt.scale, qt.zero, st.u[0], st.u_scale[0],
+                    st.v[0], st.v_scale[0], torch.ones((M,), device=dev),
+                    None)
+            kw = dict(bits=qt.bits, group_size=qt.group_size)
+            kt = time_ms(lambda: qm.quant_matmul(
+                *args, require_kernel=True, **kw), 20, flush)
+            pt = time_ms(lambda: qm.quant_matmul_plain(*args, **kw), 3,
+                         flush)
+            dt = time_ms(lambda: x @ w, 10, flush)
+            nb, ops_n = qmm_bytes_ops(M, K, N, qt.planes, st.pad_rank)
+            bms, by = bound(nb, ops_n)
+            ks, kch = qm.qmm_splits(M, K, N)
+            log(f"  quant_matmul {proj} M={M} K={K} N={N} bits={qt.bits} "
+                f"R={st.pad_rank} K-splits={ks}: kernel {_fmt(kt)}; plain "
+                f"{_fmt(pt)}; dense f32 cuBLAS x@W (16x the weight bytes, "
+                f"context) {_fmt(dt)}; bound {bms:.4f} ms ({by}; "
+                f"{nb / 1e6:.2f} MB, {ops_n / 1e9:.3f} GFLOP)")
+            if proj == "w1" and M == B:
+                table["quant_matmul"] = dict(
+                    ms=_ms("quant_matmul kernel", kt),
+                    plain_ms=_ms("quant_matmul plain", pt), bound_ms=bms,
+                    bound_by=by, library_ms=None)
+            del x, args
+        del w
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    S = 1 << max(sl["P"] + sl["NEW"], 1).bit_length()
+    filled = sl["P"] + sl["NEW"]
+    q = torch.randn((B, H, hd), generator=gen, device=dev) / math.sqrt(hd)
+    k = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
+    v = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
+    ar = torch.arange(S, device=dev, dtype=torch.int32)
+    pos = torch.where(ar < filled, ar, -1)[None].repeat(B, 1)
+    cur = torch.full((B,), filled - 1, dtype=torch.int32, device=dev)
+    kt = time_ms(lambda: fd.flash_decode_attention(
+        q, k, v, pos, cur, require_kernel=True), 20, flush)
+    pt = time_ms(lambda: fd.flash_decode_attention_plain(q, k, v, pos, cur),
+                 20, flush)
+    nb = 2 * B * filled * KVH * hd * 4 + 4 * B * S + 4 * B + 8 * B * H * hd
+    bms, by = bound(nb, 4 * B * H * filled * hd)
+    log(f"  flash_decode B={B} H={H} KVH={KVH} (G={H // KVH}) hd={hd} S={S} "
+        f"valid={filled} f32: kernel {_fmt(kt)}; plain {_fmt(pt)}; bound "
+        f"{bms:.4f} ms ({by})")
+    return table
+
+
 def profile_decode(eng, prompts, step_s: float, steps: int = 4) -> None:
     """Where a decode step's time goes: the device time of every kernel
     over ``steps`` profiled steps, against the host-clock time of a step
@@ -602,21 +825,37 @@ def main() -> int:
 
     log("== phase 4: timing")
     table = timing_phase(dev, sl)
+    moe = {k: sl[k] for k in ("launches", "compress_s", "prefill_ms",
+                              "decode_tok_s")}
+    del sl
+    torch.cuda.empty_cache()
+
+    log("== phase 5: dense slice (Llama-3.2-3B)")
+    dl = dense_phase(dev)
+    table.update(dense_timing(dev, dl))
     src = {"fused_expert_matmul": (
         "src/repro_torch/kernels/csrc/fused_expert.cu",
         "src/repro/kernels/quant_matmul.py:241"),
         "flash_decode_attention": (
         "src/repro_torch/kernels/csrc/flash_decode.cu",
-        "src/repro/kernels/decode_attention.py:73")}
+        "src/repro/kernels/decode_attention.py:73"),
+        "quant_matmul": (
+        "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "src/repro/kernels/quant_matmul.py:87")}
     kernels = []
     for name, (path, replaces) in src.items():
+        by_path = {"mixtral": moe["launches"].get(name, 0),
+                   "llama": dl["launches"].get(name, 0)}
         kernels.append(dict(name=name, route="cuda", source=path,
                             replaces=replaces,
-                            launches=sl["launches"][name],
+                            launches=sum(by_path.values()),
+                            launches_by_path=by_path,
                             max_abs_err=errs[name], **table[name]))
-    log(f"  slice: compression {sl['compress_s']:.2f} s, prefill "
-        f"{sl['prefill_ms']:.2f} ms, decode {sl['decode_tok_s']:.2f} tok/s "
-        f"(total run {time.perf_counter() - t_start:.1f} s)")
+    for name, r in (("Mixtral slice", moe), ("Llama slice", dl)):
+        log(f"  {name}: compression {r['compress_s']:.2f} s, prefill "
+            f"{r['prefill_ms']:.2f} ms, decode {r['decode_tok_s']:.2f} "
+            f"tok/s")
+    log(f"  total run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

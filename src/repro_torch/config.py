@@ -82,6 +82,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     moe_layer_period: int = 1
     first_layer_dense: bool = False
+    gated_ffn: bool = True             # False -> plain 2-matrix MLP
     quant: QuantConfig = field(default_factory=QuantConfig)
     max_position: int = 524_288
     kv_bits: int = 16                  # 8 = int8 KV cache

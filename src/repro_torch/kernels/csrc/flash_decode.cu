@@ -21,11 +21,13 @@
 // registers; the warps merge in shared memory and write one partial per
 // (row, head, chunk); flash_decode_combine_kernel merges the chunks.
 //
-// A row with no valid slot gives zeros (acc 0 over max(l, 1e-30)); the
-// plain version and the TPU kernel give the mean of V over the row's
-// slots there, since their softmax runs over masked scores that are all
-// equal.  Decode never asks for such a row: the current token's slot is
-// written before attention reads the cache.
+// A row with no valid slot gives what the plain version and the TPU
+// kernel give there, since their softmax runs over masked scores that are
+// all equal: the mean over the row's S slots of V (times v_scale for an
+// int8 cache).  Only that degenerate row reads those V rows: the combine
+// kernel reads them when every chunk's l is 0.  Decode never asks for such
+// a row (the current token's slot is written before attention reads the
+// cache).
 //
 // Plain C interface (route b of the build): the entry point returns
 // cudaGetLastError() after its launches.
@@ -188,23 +190,42 @@ flash_decode_split_kernel(const float* __restrict__ q,
   }
 }
 
-// out (B,H,HD) f32 from the NC chunk partials of each (row, head).
+// out (B,H,HD) f32 from the NC chunk partials of each (row, head); a row
+// with no valid slot (every chunk's l is 0) gets the mean of V over its S
+// slots.
+template <typename T>
 __global__ void flash_decode_combine_kernel(const float* __restrict__ pm,
                                             const float* __restrict__ pl,
                                             const float* __restrict__ pacc,
+                                            const T* __restrict__ v,
+                                            const __nv_bfloat16* __restrict__ vs,
                                             float* __restrict__ out,
-                                            int NC, int HD) {
+                                            int NC, int HD, int S, int H,
+                                            int KVH) {
   const size_t bh = blockIdx.x;
   float M = NEG;
   for (int c = 0; c < NC; ++c) M = fmaxf(M, pm[bh * NC + c]);
-  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
-    float L = 0.f, A = 0.f;
-    for (int c = 0; c < NC; ++c) {
-      const float f = expf(pm[bh * NC + c] - M);
-      L += pl[bh * NC + c] * f;
-      A += pacc[(bh * NC + c) * HD + d] * f;
+  float L = 0.f;
+  for (int c = 0; c < NC; ++c) L += pl[bh * NC + c] * expf(pm[bh * NC + c] - M);
+  if (L > 0.f) {
+    for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+      float A = 0.f;
+      for (int c = 0; c < NC; ++c)
+        A += pacc[(bh * NC + c) * HD + d] * expf(pm[bh * NC + c] - M);
+      out[bh * HD + d] = A / L;
     }
-    out[bh * HD + d] = A / fmaxf(L, 1e-30f);
+    return;
+  }
+  const int b = (int)(bh / H), kvh = (int)(bh % H) / (H / KVH);
+  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+    float A = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const size_t row = ((size_t)b * S + s) * KVH + kvh;
+      float val = to_f(v[row * HD + d]);
+      if (vs != nullptr) val *= __bfloat162float(vs[row]);
+      A += val;
+    }
+    out[bh * HD + d] = A / (float)S;
   }
 }
 
@@ -212,8 +233,8 @@ template <typename T>
 int launch_split(dim3 grid, cudaStream_t stream, const float* q, const void* k,
                  const void* v, const void* ks, const void* vs,
                  const int* kv_pos, const int* cur_pos, float* pm, float* pl,
-                 float* pacc, int S, int H, int KVH, int HD, int window,
-                 int chunk) {
+                 float* pacc, float* out, int S, int H, int KVH, int HD,
+                 int window, int chunk) {
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const __nv_bfloat16* kst = static_cast<const __nv_bfloat16*>(ks);
@@ -230,6 +251,9 @@ int launch_split(dim3 grid, cudaStream_t stream, const float* q, const void* k,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FD_LAUNCH
+  flash_decode_combine_kernel<T><<<grid.z * grid.y * (H / KVH),
+                                   HD < 128 ? HD : 128, 0, stream>>>(
+      pm, pl, pacc, vt, vst, out, grid.x, HD, S, H, KVH);
   return 0;
 }
 
@@ -252,14 +276,12 @@ int flash_decode_forward(const float* q, const void* k, const void* v,
   const dim3 grid(n_chunks, KVH, B);
   int rc;
   switch (kv_kind) {
-    case 0: rc = launch_split<float>(grid, stream, q, k, v, nullptr, nullptr, kv_pos, cur_pos, pm, pl, pacc, S, H, KVH, HD, window, chunk); break;
-    case 1: rc = launch_split<__nv_bfloat16>(grid, stream, q, k, v, nullptr, nullptr, kv_pos, cur_pos, pm, pl, pacc, S, H, KVH, HD, window, chunk); break;
-    case 2: rc = launch_split<int8_t>(grid, stream, q, k, v, k_scale, v_scale, kv_pos, cur_pos, pm, pl, pacc, S, H, KVH, HD, window, chunk); break;
+    case 0: rc = launch_split<float>(grid, stream, q, k, v, nullptr, nullptr, kv_pos, cur_pos, pm, pl, pacc, out, S, H, KVH, HD, window, chunk); break;
+    case 1: rc = launch_split<__nv_bfloat16>(grid, stream, q, k, v, nullptr, nullptr, kv_pos, cur_pos, pm, pl, pacc, out, S, H, KVH, HD, window, chunk); break;
+    case 2: rc = launch_split<int8_t>(grid, stream, q, k, v, k_scale, v_scale, kv_pos, cur_pos, pm, pl, pacc, out, S, H, KVH, HD, window, chunk); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
-  flash_decode_combine_kernel<<<B * H, HD < 128 ? HD : 128, 0, stream>>>(
-      pm, pl, pacc, out, n_chunks, HD);
   return (int)cudaGetLastError();
 }
 

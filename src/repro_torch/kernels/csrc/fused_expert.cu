@@ -22,12 +22,13 @@
 //    compensation mask is 0 skip the V epilogue, so only the factors the
 //    router actually selects leave device memory.
 //  * The main kernel (fused_expert_kernel) runs one block per (token tile,
-//    128-column tile, expert).  Its 8 warps split K by 64-row pack blocks;
-//    each lane owns 4 adjacent columns, so one 32-bit load per plane row
-//    brings 4 columns of packed codes (coalesced 128 B per warp), and the
-//    codes are unpacked in registers.  Planes whose bit offset is at or
-//    above expert_bits[e] are masked to zero.  Up to 4 bits, a warp loads
-//    its next pack block into registers while it computes the current one.
+//    128-column tile, expert).  Its 8 warps split K by 64-row pack blocks
+//    (quant_tile.cuh: warp_k_walk, shared with quant_matmul.cu); each lane
+//    owns 4 adjacent columns, so one 32-bit load per plane row brings 4
+//    columns of packed codes (coalesced 128 B per warp), and the codes are
+//    unpacked in registers.  Planes whose bit offset is at or above
+//    expert_bits[e] are masked to zero.  Up to 4 bits, a warp loads its
+//    next pack block into registers while it computes the current one.
 //  * Dequantization is factored per pack block: sum_k x*(q-z)*s =
 //    s*(sum_k x*q - z*sum_k x), so the inner loop is one byte-permute, one
 //    add and C multiply-adds per weight; codes become floats with the
@@ -45,11 +46,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_tile.cuh"
+
 namespace {
 
-constexpr int PACK = 64;        // K rows per packing block (PACK_BLOCK)
-constexpr int BN = 128;         // output columns per block
-constexpr int WARPS = 8;        // warps per block of the main kernel
+using namespace quant_tile;
+
 constexpr int XU_TILE_C = 8;    // tokens per block of the pre-pass
 constexpr int XU_TILE_R = 128;  // ranks per block of the pre-pass
 
@@ -141,81 +143,6 @@ __global__ void fused_expert_xu_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-// byte i of `word`, as the float value of that byte (exact for 0..255):
-// prmt builds the bit pattern of 2^23 + byte, then 2^23 is subtracted.
-__device__ __forceinline__ float byte_to_float(uint32_t word, int i) {
-  const uint32_t sel = (uint32_t)i | 0x7540u;   // bytes: [i, 0, 0, 0x4B]
-  const uint32_t bits = __byte_perm(word, 0x4B000000u, sel);
-  return __uint_as_float(bits) - 8388608.f;
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-template <int BITS> struct Fmt;
-template <> struct Fmt<1> { static constexpr int P0 = 1, P1 = 0; };
-template <> struct Fmt<2> { static constexpr int P0 = 2, P1 = 0; };
-template <> struct Fmt<3> { static constexpr int P0 = 2, P1 = 1; };
-template <> struct Fmt<4> { static constexpr int P0 = 4, P1 = 0; };
-template <> struct Fmt<8> { static constexpr int P0 = 8, P1 = 0; };
-
-// One warp's registers for one 64-row pack block: the packed codes of its
-// 4 columns (one 32-bit word per plane row), their scale and zero, and
-// the x values it stages into shared memory.
-template <int BITS, int CT>
-struct Tile {
-  static constexpr int L0 = PACK * Fmt<BITS>::P0 / 8;
-  static constexpr int L1 = Fmt<BITS>::P1 ? PACK * Fmt<BITS>::P1 / 8 : 1;
-  uint32_t w0[L0];
-  uint32_t w1[L1];
-  float4 s, z;
-  float x[CT][2];
-};
-
-struct Args {
-  const float* x;
-  const int* rows;      // (E,) occupied leading slots per expert, or null
-  const uint8_t* plane0;
-  const uint8_t* plane1;
-  const float* scale;
-  const float* zero;
-  int C, K, N, group_size;
-};
-
-template <int BITS, int CT>
-__device__ __forceinline__ void load_tile(Tile<BITS, CT>& t, const Args& a,
-                                          int occ, int pb, int e, int c0,
-                                          int lane,
-                                          int col, bool col_ok,
-                                          uint32_t keep0, uint32_t keep1) {
-  using T = Tile<BITS, CT>;
-  const float* xe = a.x + (size_t)e * a.C * a.K + pb * PACK + lane;
-#pragma unroll
-  for (int c = 0; c < CT; ++c)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      t.x[c][h] = (c0 + c < occ) ? xe[(size_t)(c0 + c) * a.K + 32 * h] : 0.f;
-  if (col_ok) {
-    const size_t rows0 = (size_t)a.K * Fmt<BITS>::P0 / 8;
-    const uint8_t* p0 = a.plane0 + ((size_t)e * rows0 + (size_t)pb * T::L0) * a.N + col;
-#pragma unroll
-    for (int r = 0; r < T::L0; ++r)
-      t.w0[r] = *reinterpret_cast<const uint32_t*>(p0 + (size_t)r * a.N) & keep0;
-    if (Fmt<BITS>::P1) {
-      const size_t rows1 = (size_t)a.K * Fmt<BITS>::P1 / 8;
-      const uint8_t* p1 = a.plane1 + ((size_t)e * rows1 + (size_t)pb * T::L1) * a.N + col;
-#pragma unroll
-      for (int r = 0; r < T::L1; ++r)
-        t.w1[r] = *reinterpret_cast<const uint32_t*>(p1 + (size_t)r * a.N) & keep1;
-    }
-    const int g = (pb * PACK) / a.group_size;
-    const size_t sz = ((size_t)e * (a.K / a.group_size) + g) * a.N + col;
-    t.s = *reinterpret_cast<const float4*>(a.scale + sz);
-    t.z = *reinterpret_cast<const float4*>(a.zero + sz);
-  }
-}
-
 // Block (token tile, column tile, expert); 8 warps split the K walk by
 // pack blocks, each warp loading its next pack block while it computes
 // the current one (for widths up to 4 bits, where registers allow).
@@ -230,14 +157,6 @@ fused_expert_kernel(Args a,
                     const int* __restrict__ ranks,
                     const int* __restrict__ expert_bits,
                     float* __restrict__ out, int R) {
-  constexpr int P0 = Fmt<BITS>::P0;
-  constexpr int P1 = Fmt<BITS>::P1;
-  using T = Tile<BITS, CT>;
-  constexpr int L0 = T::L0, L1 = T::L1;
-  constexpr uint32_t M0 = ((1u << P0) - 1u) * 0x01010101u;
-  constexpr uint32_t M1 = P1 ? ((1u << P1) - 1u) * 0x01010101u : 0u;
-  constexpr bool PREFETCH = BITS <= 4;
-
   const int C = a.C, K = a.K, N = a.N;
   const int e = blockIdx.z;
   const int c0 = blockIdx.x * CT;
@@ -270,70 +189,8 @@ fused_expert_kernel(Args a,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
 
-  const int n_pb = K / PACK;
-  T cur, nxt;
-  if (warp < n_pb)
-    load_tile<BITS, CT>(cur, a, occ, warp, e, c0, lane, col, col_ok, keep0, keep1);
-  for (int pb = warp; pb < n_pb; pb += WARPS) {
-    const int pn = pb + WARPS;
-    if (PREFETCH && pn < n_pb)
-      load_tile<BITS, CT>(nxt, a, occ, pn, e, c0, lane, col, col_ok, keep0, keep1);
-    // stage x; per-token sum of x over the block (zero-point term)
-    float xsum[CT];
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      xs[c * PACK + lane] = cur.x[c][0];
-      xs[c * PACK + lane + 32] = cur.x[c][1];
-      float s = cur.x[c][0] + cur.x[c][1];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
-      xsum[c] = s;
-    }
-    __syncwarp();
-    if (col_ok) {
-      float t[CT][4];
-#pragma unroll
-      for (int c = 0; c < CT; ++c)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) t[c][i] = 0.f;
-#pragma unroll
-      for (int k4 = 0; k4 < PACK / 4; ++k4) {
-        float4 xv[CT];
-#pragma unroll
-        for (int c = 0; c < CT; ++c)
-          xv[c] = *reinterpret_cast<const float4*>(xs + c * PACK + k4 * 4);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int k = k4 * 4 + kk;
-          // plane-0 chunk j sits at bit offset j*P0 of rows [j*L0, (j+1)*L0)
-          uint32_t codes = (cur.w0[k % L0] >> ((k / L0) * P0)) & M0;
-          if (P1) codes |= ((cur.w1[k % L1] >> ((k / L1) * P1)) & M1) << P0;
-          float q[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) q[i] = byte_to_float(codes, i);
-#pragma unroll
-          for (int c = 0; c < CT; ++c) {
-            const float xk = lane_of(xv[c], kk);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) t[c][i] += xk * q[i];
-          }
-        }
-      }
-      const float sv[4] = {cur.s.x, cur.s.y, cur.s.z, cur.s.w};
-      const float zv[4] = {cur.z.x, cur.z.y, cur.z.z, cur.z.w};
-#pragma unroll
-      for (int c = 0; c < CT; ++c)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[c][i] += sv[i] * (t[c][i] - zv[i] * xsum[c]);
-    }
-    __syncwarp();
-    if (PREFETCH) {
-      cur = nxt;
-    } else if (pn < n_pb) {
-      load_tile<BITS, CT>(cur, a, occ, pn, e, c0, lane, col, col_ok, keep0, keep1);
-    }
-  }
+  warp_k_walk<BITS, CT>(a, occ, e, c0, 0, K / PACK, warp, lane, col, col_ok,
+                        keep0, keep1, xs, acc);
 
   // cross-warp reduction through shared memory
   __syncthreads();
@@ -388,11 +245,6 @@ void launch_main(int ct, dim3 grid, cudaStream_t stream, const Args& a,
 
 extern "C" {
 
-// Token-tile width the main kernel uses for C tokens per expert.
-int fused_expert_token_tile(int C) {
-  return C <= 1 ? 1 : C <= 2 ? 2 : C <= 4 ? 4 : 8;
-}
-
 // x (E,C,K) f32; plane0/plane1 (E,K*p/8,N) u8 (plane1 null unless bits==3);
 // scale/zero (E,K/G,N) f32; u (E,K,R) i8; u_scale (E,1,R); v (E,R,N) i8;
 // v_scale (E,R,1); me (E,C) f32; ge (E,C) f32 or null; rank_cap (1,) i32 or
@@ -423,7 +275,7 @@ int fused_expert_forward(const float* x, const uint8_t* plane0,
         partial, u_scale, v_scale, me, rank_cap, ranks, xu, C, R, KS);
   }
   const Args a{x, rows, plane0, plane1, scale, zero, C, K, N, group_size};
-  const int ct = fused_expert_token_tile(C);
+  const int ct = token_tile(C);
   const dim3 grid((C + ct - 1) / ct, (N + BN - 1) / BN, E);
   switch (bits) {
     case 1: launch_main<1>(ct, grid, stream, a, xu, v, me, ge, rank_cap, ranks, expert_bits, out, R); break;

@@ -76,8 +76,8 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version, unless ``require_kernel`` asks for the kernel.  A row
-    with no valid slot gives zeros from the kernel, where the plain
-    version gives the mean of V over its slots."""
+    with no valid slot gives the mean of V over its slots from both, as
+    JAX's ``decode_attention`` does."""
     if not q.is_cuda:
         if require_kernel:
             raise ValueError("the CUDA flash-decode kernel needs CUDA "

@@ -1,7 +1,8 @@
-"""Fused expert projection: CUDA kernel wrapper and its plain version.
+"""Quantized matmuls: CUDA kernel wrappers and their plain versions.
 
-Port of ``repro/kernels/quant_matmul.py::fused_expert_matmul_pallas``.
-For every expert e of one (layer, projection):
+``fused_expert_matmul`` ports
+``repro/kernels/quant_matmul.py::fused_expert_matmul_pallas``.  For every
+expert e of one (layer, projection):
 
     ye[e] = (xe[e] @ dequant_e(W)                       # true-width HQQ
              + mask_r((xe[e] * me[e]) @ (U_e u_s)) v_s @ V_e)  # comp
@@ -12,6 +13,15 @@ main kernel; see the source note there for what bounds it on the H100 and
 what its design does about that.  ``rank_cap``, ``expert_bits`` and the
 true ``ranks`` are device tensors read by the kernel, never compile-time
 specialisations.
+
+``quant_matmul`` ports ``quant_matmul_pallas`` and
+``lowrank_comp_matmul_pallas`` (one packed (K, N) matrix, the dense-FFN
+path):
+
+    y = x @ dequant(W) [+ mask_r((x * mask) @ (U u_s)) v_s @ V]
+
+Its kernel (``csrc/quant_matmul.cu``) splits K over blocks and reduces the
+splits, with the compensation epilogue, in a second launch.
 """
 from __future__ import annotations
 
@@ -23,7 +33,10 @@ import torch
 from ..core.quantize import PACK_BLOCK, PLANES, unpack_plane
 from .build import LaunchCounter, check, load
 
-launches = LaunchCounter()
+launches = LaunchCounter()          # fused_expert_matmul
+qmm_launches = LaunchCounter()      # quant_matmul
+
+_TARGET_BLOCKS = 264                # two blocks per SM of an H100
 
 
 def fused_expert_matmul_plain(xe, planes, scale, zero, u, u_scale, v,
@@ -63,7 +76,7 @@ def fused_expert_matmul_plain(xe, planes, scale, zero, u, u_scale, v,
     return torch.stack(outs)
 
 
-def _lib():
+def _fused_lib():
     lib = load("fused_expert.cu")
     fn = lib.fused_expert_forward
     if fn.argtypes is None:
@@ -148,7 +161,7 @@ def fused_expert_matmul(xe: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     p0 = _ptr(planes[0], torch.uint8, "planes[0]", dev)
     p1 = _ptr(planes[1], torch.uint8, "planes[1]", dev) \
         if len(planes) > 1 else None
-    fn = _lib()
+    fn = _fused_lib()
     rc = fn(_ptr(x, torch.float32, "xe", dev), p0, p1,
             _ptr(scale, torch.float32, "scale", dev, 16),
             _ptr(zero, torch.float32, "zero", dev, 16),
@@ -169,4 +182,140 @@ def fused_expert_matmul(xe: torch.Tensor, planes: Tuple[torch.Tensor, ...],
             torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "fused_expert_forward")
     launches.n += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# one packed matrix: quant_matmul / lowrank_comp_matmul
+# ---------------------------------------------------------------------------
+
+def quant_matmul_plain(x, planes, scale, zero, u=None, u_scale=None, v=None,
+                       v_scale=None, mask=None, rank_cap=None, *, bits: int,
+                       group_size: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on the same arguments: unpack,
+    dequantize, ``x @ W``, then, when ``u`` is given, the epilogue
+    ``+ mask_r((x * mask) @ (U u_s)) v_s @ V`` (ranks at or above
+    ``rank_cap`` contribute nothing).  Returns (M, N) f32."""
+    K = x.shape[1]
+    codes = None
+    for (p, off), plane in zip(PLANES[bits], planes):
+        sub = unpack_plane(plane, p).to(torch.int32) << off
+        codes = sub if codes is None else codes | sub
+    n = codes.shape[1]
+    g = codes.float().reshape(K // group_size, group_size, n)
+    w = ((g - zero[:, None, :]) * scale[:, None, :]).reshape(K, n)
+    xf = x.float()
+    y = xf @ w
+    if u is None:
+        return y
+    if mask is not None:
+        xf = xf * mask[:, None].float()
+    xu = xf @ (u.float() * u_scale)
+    if rank_cap is not None:
+        keep = torch.arange(u.shape[-1], device=x.device) \
+            < rank_cap.reshape(())
+        xu = xu * keep.float()
+    return y + (xu * v_scale[:, 0]) @ v.float()
+
+
+def _qmm_lib():
+    fn = load("quant_matmul.cu").quant_matmul_forward
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p] * 14 + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def token_tile(m: int) -> int:
+    """Tokens per block of the kernels (``quant_tile.cuh::token_tile``)."""
+    return 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
+
+
+def qmm_splits(M: int, K: int, N: int) -> Tuple[int, int]:
+    """(K splits, pack blocks per split) of the quant_matmul kernel: enough
+    splits for about two blocks per SM, each split at least one 64-row
+    pack block per warp (8), no split empty."""
+    tiles = -(-M // token_tile(M)) * -(-N // 128)
+    n_pb = K // PACK_BLOCK
+    ks = max(1, min(-(-_TARGET_BLOCKS // tiles), n_pb // 8))
+    kch = -(-n_pb // ks)
+    return -(-n_pb // kch), kch
+
+
+def quant_matmul(x: torch.Tensor, planes: Tuple[torch.Tensor, ...],
+                 scale: torch.Tensor, zero: torch.Tensor,
+                 u: Optional[torch.Tensor] = None,
+                 u_scale: Optional[torch.Tensor] = None,
+                 v: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None,
+                 rank_cap: Optional[torch.Tensor] = None, *, bits: int,
+                 group_size: int, require_kernel: bool = False
+                 ) -> torch.Tensor:
+    """(M, N) f32 ``x @ dequant(W)``, plus the compensation when ``u`` is
+    given.
+
+    x: (M, K); planes[i]: (K//c_i, N) u8; scale/zero: (K//G, N) f32;
+    u: (K, R) i8; u_scale: (1, R); v: (R, N) i8; v_scale: (R, 1); mask:
+    (M,) or None (= every token compensated); rank_cap: (1,) i32 or None
+    (= R).
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
+    plain version, unless ``require_kernel`` asks for the kernel."""
+    if not x.is_cuda:
+        if require_kernel:
+            raise ValueError("the CUDA quant_matmul kernel needs CUDA "
+                             f"tensors; x is on {x.device}")
+        return quant_matmul_plain(x, planes, scale, zero, u, u_scale, v,
+                                  v_scale, mask, rank_cap, bits=bits,
+                                  group_size=group_size)
+    M, K = x.shape
+    N = scale.shape[-1]
+    if K % PACK_BLOCK or group_size % PACK_BLOCK or K % group_size:
+        raise ValueError(f"quant_matmul kernel needs K ({K}) and group_size "
+                         f"({group_size}) multiples of {PACK_BLOCK}")
+    if N % 4:
+        raise ValueError(f"quant_matmul kernel needs N % 4 == 0, got {N}")
+    if len(planes) != len(PLANES[bits]):
+        raise ValueError(f"{len(planes)} planes for bits={bits}")
+    dev = x.device
+    comp = u is not None
+    R = u.shape[-1] if comp else 0
+    if comp and (u.dtype != torch.int8 or v.dtype != torch.int8):
+        raise ValueError("quant_matmul kernel takes int8 compensator "
+                         f"factors, got {u.dtype}/{v.dtype}")
+    if R > 1024:
+        raise ValueError(f"quant_matmul kernel takes rank <= 1024, got {R}")
+    xf = x.float().contiguous()
+    mf = None if mask is None or not comp else mask.float().contiguous()
+    ks, kch = qmm_splits(M, K, N)
+    partial = torch.empty((ks, M, N), dtype=torch.float32, device=dev)
+    xu_part = (torch.empty((ks, M, R), dtype=torch.float32, device=dev)
+               if comp else None)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    p1 = _ptr(planes[1], torch.uint8, "planes[1]", dev) \
+        if len(planes) > 1 else None
+    if comp:
+        factors = (_ptr(u, torch.int8, "u", dev, 1),
+                   _ptr(u_scale, torch.float32, "u_scale", dev),
+                   _ptr(v, torch.int8, "v", dev),
+                   _ptr(v_scale, torch.float32, "v_scale", dev),
+                   _ptr(mf, torch.float32, "mask", dev),
+                   _ptr(rank_cap, torch.int32, "rank_cap", dev))
+    else:
+        factors = (None,) * 6
+    rc = _qmm_lib()(
+        _ptr(xf, torch.float32, "x", dev),
+        _ptr(planes[0], torch.uint8, "planes[0]", dev), p1,
+        _ptr(scale, torch.float32, "scale", dev, 16),
+        _ptr(zero, torch.float32, "zero", dev, 16), *factors,
+        _ptr(partial, torch.float32, "partial", dev, 16),
+        _ptr(xu_part, torch.float32, "xu_part", dev),
+        _ptr(out, torch.float32, "out", dev, 16),
+        M, K, N, R, ks, kch, bits, group_size,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "quant_matmul_forward")
+    qmm_launches.n += 1
     return out

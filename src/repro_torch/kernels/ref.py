@@ -1,5 +1,6 @@
 """Plain PyTorch oracles (port of ``repro/kernels/ref.py``:
-``dequant_ref`` and ``fused_expert_matmul_ref``).
+``dequant_ref``, ``quant_matmul_ref``, ``lowrank_comp_matmul_ref`` and
+``fused_expert_matmul_ref``).
 
 These follow the JAX oracle step for step: dequantize every expert in
 full, then dense products.  Like the JAX oracle, they do not mask planes
@@ -24,6 +25,42 @@ def dequant_ref(planes: Tuple[torch.Tensor, ...], scale: torch.Tensor,
     g = q.reshape(k // group_size, group_size, n)
     w = (g - zero[:, None, :]) * scale[:, None, :]
     return w.reshape(k, n).to(dtype)
+
+
+def quant_matmul_ref(x: torch.Tensor, planes: Tuple[torch.Tensor, ...],
+                     scale: torch.Tensor, zero: torch.Tensor, bits: int,
+                     group_size: int, out_dtype=torch.float32
+                     ) -> torch.Tensor:
+    """y = x @ dequant(Wq);  x: (M, K) -> (M, N), in f32."""
+    w = dequant_ref(planes, scale, zero, bits, group_size)
+    return (x.float() @ w).to(out_dtype)
+
+
+def lowrank_comp_matmul_ref(x: torch.Tensor,
+                            planes: Tuple[torch.Tensor, ...],
+                            scale: torch.Tensor, zero: torch.Tensor,
+                            bits: int, group_size: int,
+                            u: torch.Tensor, v: torch.Tensor,
+                            u_scale: torch.Tensor, v_scale: torch.Tensor,
+                            mask: Optional[torch.Tensor],
+                            out_dtype=torch.float32,
+                            rank_cap: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """y = x @ dequant(Wq) + mask_r((x*mask) @ (U u_s)) @ (V v_s).
+
+    u: (K, R) codes, u_scale: (1, R); v: (R, N) codes, v_scale: (R, 1);
+    mask: (M,) 0/1 per-token compensation gate (None = all tokens);
+    rank_cap: scalar ceiling on the compensator rank (None = R)."""
+    y = quant_matmul_ref(x, planes, scale, zero, bits, group_size)
+    xf = x.float()
+    if mask is not None:
+        xf = xf * mask[:, None].float()
+    xu = xf @ (u.float() * u_scale)
+    if rank_cap is not None:
+        xu = xu * (torch.arange(u.shape[-1], device=xu.device)
+                   < rank_cap).float()
+    y = y + xu @ (v.float() * v_scale)
+    return y.to(out_dtype)
 
 
 def fused_expert_matmul_ref(xe: torch.Tensor,

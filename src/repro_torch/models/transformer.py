@@ -4,8 +4,8 @@ per-layer forward (port of the global-attention subset of
 
 Parameters are plain dicts of tensors with one dict per layer under
 ``params["layers"]`` (the JAX package's scanned segments become a Python
-loop).  Only the layers the compressed-MoE slice runs are ported: a
-global-attention mixer followed by an MoE FFN.
+loop).  Only the layers the serving slices run are ported: a
+global-attention mixer followed by an MoE FFN or a dense FFN.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from .. import resolve_device
 from ..config import ModelConfig
 from .attention import attention, decode_attention
+from .ffn import ffn_apply, ffn_apply_quantized
 from .kvcache import (dequant_scales, init_attn_cache, prefill_attn_cache,
                       update_attn_cache)
 from .layers import apply_rope, dense_init, embed_init, rms_norm
@@ -25,7 +26,7 @@ from .moe import RoutingInfo, moe_apply
 
 class LayerSpec(NamedTuple):
     mixer: str          # global (the only mixer of this slice)
-    ffn: str            # moe
+    ffn: str            # moe | dense
 
 
 @dataclasses.dataclass
@@ -42,20 +43,21 @@ class ExecContext:
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     specs = []
+    if ((cfg.moe is not None and cfg.moe.num_shared_experts)
+            or cfg.qkv_bias or cfg.post_attn_norm):
+        raise NotImplementedError(
+            f"{cfg.name}: shared experts, qkv bias and post-attention "
+            "norms are not ported")
     for i in range(cfg.num_layers):
         mixer = cfg.layer_kind(i)
         moe = cfg.moe is not None and cfg.is_moe_layer(i) and not (
             i == 0 and cfg.first_layer_dense)
-        if mixer != "global" or not moe:
+        if mixer != "global":
             raise NotImplementedError(
                 f"layer {i} of {cfg.name} is ({mixer}, "
                 f"{'moe' if moe else 'dense'}); the port runs global "
-                "attention + MoE layers only")
-        if cfg.moe.num_shared_experts or cfg.qkv_bias or cfg.post_attn_norm:
-            raise NotImplementedError(
-                f"{cfg.name}: shared experts, qkv bias and post-attention "
-                "norms are not ported")
-        specs.append(LayerSpec(mixer, "moe"))
+                "attention layers only")
+        specs.append(LayerSpec(mixer, "moe" if moe else "dense"))
     return specs
 
 
@@ -63,23 +65,30 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
 # parameter init
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, device, dtype):
+def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
+                device, dtype):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    m = cfg.moe
-    fe, ne = m.d_expert, m.num_experts
 
     def di(shape, fan_in, dt=dtype):
         return dense_init(shape, fan_in, gen, device, dt)
 
-    return {
+    p = {
         "pre_norm": torch.zeros((d,), dtype=dtype, device=device),
         "attn": {"wq": di((d, h, hd), d), "wk": di((d, kv, hd), d),
                  "wv": di((d, kv, hd), d), "wo": di((h, hd, d), h * hd)},
         "ffn_norm": torch.zeros((d,), dtype=dtype, device=device),
-        "moe": {"router": di((d, ne), d, torch.float32),
-                "w1": di((ne, d, fe), d), "w3": di((ne, d, fe), d),
-                "w2": di((ne, fe, d), fe)},
     }
+    if spec.ffn == "moe":
+        fe, ne = cfg.moe.d_expert, cfg.moe.num_experts
+        p["moe"] = {"router": di((d, ne), d, torch.float32),
+                    "w1": di((ne, d, fe), d), "w3": di((ne, d, fe), d),
+                    "w2": di((ne, fe, d), fe)}
+    else:
+        ff = cfg.d_ff
+        p["ffn"] = {"w1": di((d, ff), d), "w2": di((ff, d), ff)}
+        if cfg.gated_ffn:
+            p["ffn"]["w3"] = di((d, ff), d)
+    return p
 
 
 @torch.no_grad()
@@ -88,7 +97,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default: the CUDA device; raises if there is none)."""
     dev = resolve_device(device)
-    layer_specs(cfg)
+    specs = layer_specs(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params: Dict[str, Any] = {
         "embed": {"tok": embed_init((cfg.vocab_size, cfg.d_model), gen, dev,
@@ -98,8 +107,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     if not cfg.tie_embeddings:
         params["head"] = {"w": dense_init((cfg.d_model, cfg.vocab_size),
                                           cfg.d_model, gen, dev, dtype)}
-    params["layers"] = [_init_layer(gen, cfg, dev, dtype)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [_init_layer(gen, spec, cfg, dev, dtype)
+                        for spec in specs]
     return params
 
 
@@ -116,6 +125,9 @@ def compress_moe_params(params, cfg: ModelConfig, qcfg=None):
     layers, stacks_by_layer = [], []
     for lp in params["layers"]:
         lp = dict(lp)
+        if "moe" not in lp:
+            layers.append(lp)
+            continue
         mp = dict(lp["moe"])
         stacks, _ = compress_ffn_weights(mp.pop("w1"), mp.pop("w2"),
                                          mp.pop("w3"), qcfg)
@@ -127,6 +139,36 @@ def compress_moe_params(params, cfg: ModelConfig, qcfg=None):
     qparams["layers"] = layers
     return (qparams, dataclasses.replace(cfg, force_unroll_plan=True),
             stacks_by_layer)
+
+
+@torch.no_grad()
+def compress_dense_params(params, cfg: ModelConfig, qcfg=None):
+    """Compress every dense FFN for quantized serving: the counterpart of
+    ``compress_moe_params`` for dense layers, in the dense-degenerate form
+    of DESIGN.md §5.  A dense FFN is one expert: each projection goes
+    through ``compress_ffn_weights`` as a (1, K, N) view, and the E = 1
+    stacks replace the weights under ``ffn["stacks"]`` (the layout of
+    ``repro/launch/steps.py``'s abstract dense stacks).
+
+    ``qcfg`` defaults to ``cfg.quant``.  Runs on the device the weights
+    live on.  Returns ``(qparams, cfg_q)`` (``cfg_q`` has
+    ``force_unroll_plan`` set); ``params`` itself is not modified."""
+    from ..core.pipeline import compress_ffn_weights
+    qcfg = qcfg or cfg.quant
+    layers = []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        if "ffn" in lp:
+            fp = lp["ffn"]
+            w3 = fp.get("w3")
+            stacks, _ = compress_ffn_weights(
+                fp["w1"][None], fp["w2"][None],
+                None if w3 is None else w3[None], qcfg)
+            lp["ffn"] = {"stacks": stacks}
+        layers.append(lp)
+    qparams = dict(params)
+    qparams["layers"] = layers
+    return qparams, dataclasses.replace(cfg, force_unroll_plan=True)
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +220,19 @@ def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, positions, cache):
 
 def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
                 positions, cache, plan_row=None):
-    """One transformer layer.  Returns (x, aux, routing info)."""
+    """One transformer layer.  Returns (x, aux, routing info); a dense
+    layer gives no aux and no routing info."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     x = x + _attn_layer(h, p["attn"], cfg, ctx, positions, cache)
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if spec.ffn == "dense":
+        fp = p["ffn"]
+        if ctx.quantized and "stacks" in fp:
+            y = ffn_apply_quantized(h, fp["stacks"], cfg.act, cfg.gated_ffn,
+                                    impl=ctx.kernel_impl)
+        else:
+            y = ffn_apply(h, fp, cfg.act, cfg.gated_ffn)
+        return x + y, {}, None
     mp = p["moe"]
     b, s, d = h.shape
     y2, aux, info = moe_apply(
@@ -198,7 +249,8 @@ def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
 
     ``trace`` is the stacked (moe_layers, T, k) int32 router top-k ids in
     layer order and ``probs`` the (moe_layers, T, E) router
-    probabilities, both when ``ctx.collect_trace`` is set (else None).
+    probabilities, both when ``ctx.collect_trace`` is set and the model
+    has an MoE layer (else None).
     ``plan``: optional (moe_layers, 2) [top_n, rank_cap] rows."""
     use_cache = caches is not None and ctx.mode in ("prefill", "step")
     aux = {"load_balance": 0.0, "router_z": 0.0}
@@ -207,10 +259,12 @@ def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
         x, a, info = apply_layer(
             x, lp, spec, cfg, ctx, positions,
             caches["layers"][li] if use_cache else None,
-            plan_row=None if plan is None else plan[li])
+            plan_row=None if plan is None or spec.ffn != "moe"
+            else plan[len(infos)])
         for key, val in a.items():
             aux[key] = aux[key] + val    # empty outside training
-        infos.append(info)
+        if info is not None:
+            infos.append(info)
     new_caches = None
     if use_cache:
         new_caches = {"layers": caches["layers"],

@@ -4,11 +4,12 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from .config import ModelConfig
-from .configs import mixtral_8x7b
+from .configs import llama3_2_3b, mixtral_8x7b
 from .configs.base import reduce_config
 
 REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "mixtral-8x7b": mixtral_8x7b.config,
+    "llama3.2-3b": llama3_2_3b.config,
 }
 
 

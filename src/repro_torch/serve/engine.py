@@ -39,7 +39,8 @@ class GenerationResult:
     prefill_s: float
     decode_s: float
     steps: int
-    # (steps, moe_layers, B, k) decode-time router decisions
+    # (steps, moe_layers, B, k) decode-time router decisions (None when
+    # the model has no MoE layer)
     router_trace: Optional[np.ndarray] = None
 
     @property
@@ -76,8 +77,9 @@ class ServeEngine:
         self.quantized = quantized
         self.kernel_impl = kernel_impl
         self.cache_dtype = tok.dtype if cache_dtype is None else cache_dtype
-        self.collect_router_trace = collect_router_trace and bool(
-            layer_specs(cfg))
+        # a model without MoE layers routes nothing: no trace
+        self.collect_router_trace = collect_router_trace and any(
+            s.ffn == "moe" for s in layer_specs(cfg))
         self._prefill_ctx = ExecContext(mode="prefill", quantized=quantized,
                                         exact_capacity=True,
                                         kernel_impl=kernel_impl)

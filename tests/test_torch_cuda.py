@@ -119,28 +119,134 @@ def test_flash_decode_kernel_matches_plain(dev, kind, window, filled):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
-def test_flash_decode_kernel_fully_masked_row_is_zero(dev):
-    """A row with no valid slot gives zeros from the kernel (the plain
-    version's softmax over equal masked scores gives the mean of V); the
-    other rows still match the plain version."""
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_flash_decode_kernel_fully_masked_row_matches_plain(dev, kind):
+    """A row with no valid slot gives what the plain version gives there
+    (its softmax over equal masked scores: the mean of V, times v_scale
+    for int8); the other rows still match the plain version."""
+    from repro_torch.models.kvcache import _kv_quant
     g = torch.Generator(device=dev).manual_seed(5)
     B, H, KVH, hd, S = 3, 8, 2, 128, 96
     q = torch.randn((B, H, hd), generator=g, device=dev) / math.sqrt(hd)
     k = torch.randn((B, S, KVH, hd), generator=g, device=dev)
     v = torch.randn((B, S, KVH, hd), generator=g, device=dev)
+    ks = vs = None
+    if kind == "int8":
+        k, ks = _kv_quant(k)
+        v, vs = _kv_quant(v)
     ar = torch.arange(S, device=dev, dtype=torch.int32)
     pos = torch.where(ar < 40, ar, -1)[None].repeat(B, 1)
     pos[1] = -1
     cur = torch.full((B,), 39, dtype=torch.int32, device=dev)
+    got = fd.flash_decode_attention(q, k, v, pos, cur, ks, vs,
+                                    require_kernel=True)
+    want = fd.flash_decode_attention_plain(q, k, v, pos, cur, ks, vs)
+    torch.cuda.synchronize()
+    vd = v.float() * (1.0 if vs is None else vs.float()[..., None])
+    torch.testing.assert_close(want[1], vd[1].mean(dim=0).repeat_interleave(
+        H // KVH, dim=0), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_decode_kernel_gqa_group_3(dev):
+    """Llama-3.2-3B's grouping: 24 query heads over 8 KV heads."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, H, KVH, hd, S = 4, 24, 8, 128, 512
+    q = torch.randn((B, H, hd), generator=g, device=dev) / math.sqrt(hd)
+    k = torch.randn((B, S, KVH, hd), generator=g, device=dev)
+    v = torch.randn((B, S, KVH, hd), generator=g, device=dev)
+    ar = torch.arange(S, device=dev, dtype=torch.int32)
+    pos = torch.where(ar < 288, ar, -1)[None].repeat(B, 1)
+    cur = torch.full((B,), 287, dtype=torch.int32, device=dev)
     got = fd.flash_decode_attention(q, k, v, pos, cur, require_kernel=True)
     want = fd.flash_decode_attention_plain(q, k, v, pos, cur)
     torch.cuda.synchronize()
-    assert float(got[1].abs().max()) == 0.0
-    torch.testing.assert_close(got[1], torch.zeros_like(got[1]))
-    torch.testing.assert_close(want[1], v[1].mean(dim=0).repeat_interleave(
-        H // KVH, dim=0), atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(got[[0, 2]], want[[0, 2]], atol=2e-5,
-                               rtol=2e-5)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def _qmm_args(dev, M, K, N, R, bits, seed, mask_mode="half", cap=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rint(lo, hi, shape, dt):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32).to(dt)
+
+    planes = tuple(rint(0, 256, (K * p // 8, N), torch.uint8)
+                   for p, _ in PLANES[bits])
+    scale = torch.rand((K // 64, N), generator=g, device=dev) * 0.02
+    zero = torch.rand((K // 64, N), generator=g, device=dev) * 3
+    x = torch.randn((M, K), generator=g, device=dev)
+    if R == 0:
+        return (x, planes, scale, zero)
+    u = rint(-127, 128, (K, R), torch.int8)
+    v = rint(-127, 128, (R, N), torch.int8)
+    us = torch.rand((1, R), generator=g, device=dev) * 1e-3
+    vs = torch.rand((R, 1), generator=g, device=dev) * 1e-3
+    mask = {"none": None, "ones": torch.ones((M,), device=dev),
+            "half": (torch.rand((M,), generator=g, device=dev) < 0.5)
+            .float(), "zeros": torch.zeros((M,), device=dev)}[mask_mode]
+    capt = None if cap is None else torch.tensor([cap], dtype=torch.int32,
+                                                 device=dev)
+    return (x, planes, scale, zero, u, us, v, vs, mask, capt)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("m", [1, 4, 33])
+def test_quant_matmul_kernel_matches_plain(dev, bits, m):
+    """Kernel 3 (csrc/quant_matmul.cu) against its plain version: the
+    compensated form with a ragged M, a mask with zeros and a rank cap
+    below R, and the uncompensated form."""
+    cases = [dict(R=48, mask_mode="half", cap=[None, 17, 0][bits % 3]),
+             dict(R=0)]
+    for i, c in enumerate(cases):
+        args = _qmm_args(dev, m, 512, 260, c.pop("R"), bits, bits * m + i,
+                         **c)
+        before = qm.qmm_launches.n
+        got = qm.quant_matmul(*args, bits=bits, group_size=64,
+                              require_kernel=True)
+        assert qm.qmm_launches.n == before + 1
+        want = qm.quant_matmul_plain(*args, bits=bits, group_size=64)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 3072, 1024), (4, 8192, 512),
+                                   (130, 1024, 1024)])
+@pytest.mark.parametrize("mask_mode", ["none", "zeros"])
+def test_quant_matmul_kernel_split_k(dev, m, k, n, mask_mode):
+    """Decode-like shapes that split K over blocks (and one that does
+    not), with every token or no token compensated; the result is the
+    same from run to run (the splits are summed in a fixed order)."""
+    args = _qmm_args(dev, m, k, n, 32, 2, k + n, mask_mode=mask_mode)
+    got = qm.quant_matmul(*args, bits=2, group_size=64, require_kernel=True)
+    again = qm.quant_matmul(*args, bits=2, group_size=64,
+                            require_kernel=True)
+    want = qm.quant_matmul_plain(*args, bits=2, group_size=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FUSED_TOL)
+    assert torch.equal(got, again)
+
+
+def test_dense_engine_kernels_match_ref_on_card(dev):
+    from repro_torch.models.transformer import (compress_dense_params,
+                                                init_params)
+    from repro_torch.registry import get_config
+    from repro_torch.serve.engine import ServeEngine
+    import dataclasses
+    cfg = get_config("llama3.2-3b", reduced=True)
+    params = init_params(cfg, seed=0, dtype=torch.float32)
+    qp, cfg_q = compress_dense_params(
+        params, cfg, dataclasses.replace(cfg.quant, rank_budget=16))
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, (2, 9)) \
+        .astype(np.int32)
+    before = (qm.qmm_launches.n, fd.launches.n)
+    a = ServeEngine(cfg_q, qp, quantized=True).generate(prompts, 6)
+    assert qm.qmm_launches.n > before[0] and fd.launches.n > before[1]
+    b = ServeEngine(cfg_q, qp, quantized=True,
+                    kernel_impl="ref").generate(prompts, 6)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    np.testing.assert_allclose(a.logprobs, b.logprobs, rtol=1e-4, atol=1e-4)
+    assert a.router_trace is None
 
 
 def test_engine_kernels_match_ref_on_card(dev):
