@@ -20,7 +20,9 @@ Phases:
                 function, beside its bound
   5. dense      Llama-3.2-3B at its published config (28 layers, dense
                 FFNs compressed to E = 1 stacks): the same as phase 3,
-                then the dense-path kernels timed as in phase 4
+                then the dense-path kernels timed as in phase 4, with
+                quant_matmul's prefill (tensor-core path) beside both its
+                bounds and w1/w2 on both of its paths at small M
 
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -44,6 +46,8 @@ ROOT = Path(__file__).resolve().parent
 # FP32 (CUDA-core) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# and bf16 on the tensor cores (dense, f32 accumulate)
+BF16_TC_FLOPS = 989e12
 
 # kernel vs plain version, both f32 on the card: the sums run in another
 # order (split over 8 warps and 64-row blocks, the dequant factored per
@@ -200,9 +204,10 @@ def qmm_case_inputs(gen, dev, M, K, N, R, bits, mask_mode="ones", cap=None):
 
 def qmm_kernel_cases(dev, gen):
     """Kernel 3 against its plain version: the three Llama-3.2-3B
-    projections at decode (M 4) and prefill (M 1024), 2 bits, rank 32,
-    every token compensated; then other widths, a ragged M, a mask with
-    zeros, a rank cap below R, and no compensation at all."""
+    projections at decode (M 4, split-K path) and prefill (M 1024,
+    tensor-core path), 2 bits, rank 32, every token compensated; then
+    other widths, ragged M on both paths, a mask with zeros, a rank cap
+    below R, and no compensation at all."""
     from repro_torch.kernels import quant_matmul as qm
     worst = 0.0
     cases = [(proj, M, K, N, 2, "ones", None)
@@ -214,6 +219,11 @@ def qmm_kernel_cases(dev, gen):
               ("w2", 4, 8192, 3072, 2, "zeros", None),
               ("w1", 33, 3072, 8192, 4, "ones", 0),
               ("w1", 1, 3072, 8192, 2, None, None)]
+    # the tensor-core path (M >= MMA_MIN_M): ragged M, 3 and 8 bits
+    cases += [("w1", 129, 3072, 8192, 3, "half", 20),
+              ("w2", 129, 8192, 3072, 8, "half", 20),
+              ("w2", 1000, 8192, 3072, 3, "half", 20),
+              ("w1", 1000, 3072, 8192, 8, "half", 20)]
     for proj, M, K, N, bits, mask_mode, cap in cases:
         args = qmm_case_inputs(gen, dev, M, K, N, 32, bits,
                                mask_mode or "ones", cap)
@@ -682,11 +692,43 @@ def qmm_bytes_ops(M, K, N, planes, R):
     return nb, 2 * M * K * N + 2 * M * R * (K + N)
 
 
+def tc_bound(nbytes, M, K, N, R):
+    """Least time of a quant_matmul on the tensor-core path: its bytes, or
+    two bf16 products (x_hi and x_lo) of each of x @ W, x @ U and xu @ V
+    at the tensor cores' dense bf16 rate, whichever is longer."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = 2 * (2 * M * K * N + 2 * M * R * (K + N)) / BF16_TC_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def qmm_crossover(dev, gen, st, qt, flush, proj):
+    """One projection at small M on both kernel paths (split-K on the CUDA
+    cores, the tensor-core tile): {M: {path: device ms}}, the timings the
+    path threshold MMA_MIN_M rests on."""
+    from repro_torch.kernels import quant_matmul as qm
+    K, N = qt.shape
+    kw = dict(bits=qt.bits, group_size=qt.group_size)
+    out = {}
+    for M in (16, 32, 64, 96, 128, 256):
+        x = torch.randn((M, K), generator=gen, device=dev)
+        args = (x, qt.planes, qt.scale, qt.zero, st.u[0], st.u_scale[0],
+                st.v[0], st.v_scale[0], torch.ones((M,), device=dev), None)
+        out[M] = {p: _ms(f"crossover {proj} {p} M={M}", time_ms(
+            lambda: qm._launch_qmm(p, *args, **kw), 10, flush))
+                  for p in ("splitk", "mma")}
+        log(f"  crossover {proj} M={M}: split-K {out[M]['splitk']:.4f} ms, "
+            f"tensor cores {out[M]['mma']:.4f} ms on the device (the "
+            f"wrapper takes {qm.qmm_path(M)}; MMA_MIN_M {qm.MMA_MIN_M})")
+    return out
+
+
 def dense_timing(dev, sl):
     """Kernel 3 on the dense slice's layer-0 stacks at decode (M = B) and
     prefill (M = B*P), every token compensated, beside its plain version,
-    its bound, and (context only) cuBLAS ``x @ W`` on the dequantized f32
-    weight; and flash-decode at the dense slice's decode shape (G = 3)."""
+    its bounds (f32 CUDA cores and, for the tensor-core path, bf16 tensor
+    cores), and (context only) cuBLAS ``x @ W`` on the dequantized f32
+    weight; w1 and w2 on both paths at small M (the path threshold); and
+    flash-decode at the dense slice's decode shape (G = 3)."""
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
@@ -695,7 +737,7 @@ def dense_timing(dev, sl):
     gen = torch.Generator(device=dev).manual_seed(11)
     cfg = sl["cfg"]
     B = sl["B"]
-    table = {}
+    table, cross = {}, {}
     for proj in ("w1", "w3", "w2"):
         st = sl["stacks"][proj]
         qt = ops.stack_member(st, 0)
@@ -714,19 +756,35 @@ def dense_timing(dev, sl):
             dt = time_ms(lambda: x @ w, 10, flush)
             nb, ops_n = qmm_bytes_ops(M, K, N, qt.planes, st.pad_rank)
             bms, by = bound(nb, ops_n)
+            tms, tby = tc_bound(nb, M, K, N, st.pad_rank)
             ks, kch = qm.qmm_splits(M, K, N)
             log(f"  quant_matmul {proj} M={M} K={K} N={N} bits={qt.bits} "
-                f"R={st.pad_rank} K-splits={ks}: kernel {_fmt(kt)}; plain "
-                f"{_fmt(pt)}; dense f32 cuBLAS x@W (16x the weight bytes, "
-                f"context) {_fmt(dt)}; bound {bms:.4f} ms ({by}; "
-                f"{nb / 1e6:.2f} MB, {ops_n / 1e9:.3f} GFLOP)")
+                f"R={st.pad_rank} path={qm.qmm_path(M)} K-splits={ks}: "
+                f"kernel {_fmt(kt)}; plain {_fmt(pt)}; dense f32 cuBLAS "
+                f"x@W (16x the weight bytes, context) {_fmt(dt)}; bound "
+                f"f32 CUDA cores {bms:.4f} ms ({by}; {nb / 1e6:.2f} MB, "
+                f"{ops_n / 1e9:.3f} GFLOP), bf16 tensor cores x2 "
+                f"{tms:.4f} ms ({tby})")
             if proj == "w1" and M == B:
                 table["quant_matmul"] = dict(
                     ms=_ms("quant_matmul kernel", kt),
                     plain_ms=_ms("quant_matmul plain", pt), bound_ms=bms,
                     bound_by=by, library_ms=None)
+            if proj == "w1" and M == B * sl["P"]:
+                table["quant_matmul"].update(
+                    prefill_ms=_ms("quant_matmul prefill kernel", kt),
+                    prefill_plain_ms=_ms("quant_matmul prefill plain", pt),
+                    prefill_bound_ms=tms, prefill_bound_by=tby,
+                    prefill_bound_f32_ms=bms)
             del x, args
         del w
+        if proj in ("w1", "w2"):
+            cross[proj] = qmm_crossover(dev, gen, st, qt, flush, proj)
+    for M, t1 in cross["w1"].items():
+        t2 = cross["w2"][M]
+        layer = {p: 2 * t1[p] + t2[p] for p in t1}
+        log(f"  crossover per layer (w1 + w3 + w2) M={M}: split-K "
+            f"{layer['splitk']:.4f} ms, tensor cores {layer['mma']:.4f} ms")
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     S = 1 << max(sl["P"] + sl["NEW"], 1).bit_length()
     filled = sl["P"] + sl["NEW"]

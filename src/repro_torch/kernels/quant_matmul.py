@@ -20,8 +20,13 @@ path):
 
     y = x @ dequant(W) [+ mask_r((x * mask) @ (U u_s)) v_s @ V]
 
-Its kernel (``csrc/quant_matmul.cu``) splits K over blocks and reduces the
-splits, with the compensation epilogue, in a second launch.
+Its kernel (``csrc/quant_matmul.cu``) has two paths, chosen by the token
+count M: below ``MMA_MIN_M`` (decode) it splits K over CUDA-core blocks;
+from ``MMA_MIN_M`` (prefill) one block per 64 x 128 output tile runs
+bf16 ``mma.sync`` on the exact codes with x split into bf16 parts (hi and
+lo; a third for 8-bit codes).
+A second launch adds the compensation epilogue (and, on the split-K path,
+sums the splits).
 """
 from __future__ import annotations
 
@@ -218,8 +223,14 @@ def quant_matmul_plain(x, planes, scale, zero, u=None, u_scale=None, v=None,
     return y + (xu * v_scale[:, 0]) @ v.float()
 
 
-def _qmm_lib():
-    fn = load("quant_matmul.cu").quant_matmul_forward
+# C entry points of csrc/quant_matmul.cu: quant_matmul_forward picks the
+# path by M; the other two run one path at any M
+_QMM_ENTRIES = {None: "quant_matmul_forward", "splitk": "quant_matmul_splitk",
+                "mma": "quant_matmul_mma"}
+
+
+def _qmm_lib(path: Optional[str] = None):
+    fn = getattr(load("quant_matmul.cu"), _QMM_ENTRIES[path])
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
@@ -233,12 +244,28 @@ def token_tile(m: int) -> int:
     return 1 if m <= 1 else 2 if m <= 2 else 4 if m <= 4 else 8
 
 
-def qmm_splits(M: int, K: int, N: int) -> Tuple[int, int]:
-    """(K splits, pack blocks per split) of the quant_matmul kernel: enough
-    splits for about two blocks per SM, each split at least one 64-row
-    pack block per warp (8), no split empty."""
-    tiles = -(-M // token_tile(M)) * -(-N // 128)
+# Tokens from which quant_matmul runs its tensor-core path
+# (``csrc/quant_matmul.cu::kMmaMinM``); below it, the split-K path.
+MMA_MIN_M = 128
+
+
+def qmm_path(M: int) -> str:
+    """The kernel path ``quant_matmul_forward`` takes for M tokens:
+    'mma' (tensor cores) from ``MMA_MIN_M``, else 'splitk'."""
+    return "mma" if M >= MMA_MIN_M else "splitk"
+
+
+def qmm_splits(M: int, K: int, N: int,
+               path: Optional[str] = None) -> Tuple[int, int]:
+    """(K splits, pack blocks per split) of the quant_matmul kernel on
+    ``path`` (None: ``qmm_path(M)``).  The mma path never splits: (1,
+    K/64).  The split-K path takes enough splits for about two blocks per
+    SM, each split at least one 64-row pack block per warp (8), no split
+    empty."""
     n_pb = K // PACK_BLOCK
+    if (path or qmm_path(M)) == "mma":
+        return 1, n_pb
+    tiles = -(-M // token_tile(M)) * -(-N // 128)
     ks = max(1, min(-(-_TARGET_BLOCKS // tiles), n_pb // 8))
     kch = -(-n_pb // ks)
     return -(-n_pb // kch), kch
@@ -271,6 +298,17 @@ def quant_matmul(x: torch.Tensor, planes: Tuple[torch.Tensor, ...],
         return quant_matmul_plain(x, planes, scale, zero, u, u_scale, v,
                                   v_scale, mask, rank_cap, bits=bits,
                                   group_size=group_size)
+    return _launch_qmm(None, x, planes, scale, zero, u, u_scale, v, v_scale,
+                       mask, rank_cap, bits=bits, group_size=group_size)
+
+
+def _launch_qmm(path: Optional[str], x, planes, scale, zero, u, u_scale, v,
+                v_scale, mask, rank_cap, *, bits: int,
+                group_size: int) -> torch.Tensor:
+    """Launch the quant_matmul kernel on CUDA tensors.  ``path`` None lets
+    ``quant_matmul_forward`` choose by M, as ``quant_matmul`` does;
+    'splitk' or 'mma' runs that path at any M (for timing the two against
+    each other)."""
     M, K = x.shape
     N = scale.shape[-1]
     if K % PACK_BLOCK or group_size % PACK_BLOCK or K % group_size:
@@ -288,10 +326,15 @@ def quant_matmul(x: torch.Tensor, planes: Tuple[torch.Tensor, ...],
                          f"factors, got {u.dtype}/{v.dtype}")
     if R > 1024:
         raise ValueError(f"quant_matmul kernel takes rank <= 1024, got {R}")
+    mma = (path or qmm_path(M)) == "mma"
     xf = x.float().contiguous()
+    if mma and xf.data_ptr() % 16:      # the mma path copies x by 16 bytes
+        xf = xf.clone()
     mf = None if mask is None or not comp else mask.float().contiguous()
-    ks, kch = qmm_splits(M, K, N)
-    partial = torch.empty((ks, M, N), dtype=torch.float32, device=dev)
+    ks, kch = qmm_splits(M, K, N, "mma" if mma else "splitk")
+    # the mma path without compensation writes out directly
+    partial = (None if mma and not comp else
+               torch.empty((ks, M, N), dtype=torch.float32, device=dev))
     xu_part = (torch.empty((ks, M, R), dtype=torch.float32, device=dev)
                if comp else None)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
@@ -306,7 +349,7 @@ def quant_matmul(x: torch.Tensor, planes: Tuple[torch.Tensor, ...],
                    _ptr(rank_cap, torch.int32, "rank_cap", dev))
     else:
         factors = (None,) * 6
-    rc = _qmm_lib()(
+    rc = _qmm_lib(path)(
         _ptr(xf, torch.float32, "x", dev),
         _ptr(planes[0], torch.uint8, "planes[0]", dev), p1,
         _ptr(scale, torch.float32, "scale", dev, 16),
@@ -316,6 +359,6 @@ def quant_matmul(x: torch.Tensor, planes: Tuple[torch.Tensor, ...],
         _ptr(out, torch.float32, "out", dev, 16),
         M, K, N, R, ks, kch, bits, group_size,
         torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "quant_matmul_forward")
+    check(rc, _QMM_ENTRIES[path])
     qmm_launches.n += 1
     return out

@@ -164,7 +164,8 @@ def test_flash_decode_kernel_gqa_group_3(dev):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
-def _qmm_args(dev, M, K, N, R, bits, seed, mask_mode="half", cap=None):
+def _qmm_args(dev, M, K, N, R, bits, seed, mask_mode="half", cap=None,
+              group=64):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rint(lo, hi, shape, dt):
@@ -173,8 +174,8 @@ def _qmm_args(dev, M, K, N, R, bits, seed, mask_mode="half", cap=None):
 
     planes = tuple(rint(0, 256, (K * p // 8, N), torch.uint8)
                    for p, _ in PLANES[bits])
-    scale = torch.rand((K // 64, N), generator=g, device=dev) * 0.02
-    zero = torch.rand((K // 64, N), generator=g, device=dev) * 3
+    scale = torch.rand((K // group, N), generator=g, device=dev) * 0.02
+    zero = torch.rand((K // group, N), generator=g, device=dev) * 3
     x = torch.randn((M, K), generator=g, device=dev)
     if R == 0:
         return (x, planes, scale, zero)
@@ -191,13 +192,18 @@ def _qmm_args(dev, M, K, N, R, bits, seed, mask_mode="half", cap=None):
 
 
 @pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("m", [1, 4, 33])
+@pytest.mark.parametrize("m", [1, 4, 33, 64, 65, 130, 200, 1024])
 def test_quant_matmul_kernel_matches_plain(dev, bits, m):
     """Kernel 3 (csrc/quant_matmul.cu) against its plain version: the
     compensated form with a ragged M, a mask with zeros and a rank cap
-    below R, and the uncompensated form."""
+    below R, and the uncompensated form.  At prefill sizes (M >= 64: the
+    split-K path below MMA_MIN_M, the tensor-core path from it) also rank
+    caps 20 and 0 and a mask of zeros."""
     cases = [dict(R=48, mask_mode="half", cap=[None, 17, 0][bits % 3]),
              dict(R=0)]
+    if m >= 64:
+        cases += [dict(R=48, mask_mode="half", cap=20),
+                  dict(R=48, mask_mode="zeros", cap=0)]
     for i, c in enumerate(cases):
         args = _qmm_args(dev, m, 512, 260, c.pop("R"), bits, bits * m + i,
                          **c)
@@ -225,6 +231,58 @@ def test_quant_matmul_kernel_split_k(dev, m, k, n, mask_mode):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **FUSED_TOL)
     assert torch.equal(got, again)
+
+
+def test_quant_matmul_mma_path_is_deterministic(dev):
+    """The tensor-core path at prefill size returns the same bits on every
+    call (no float atomics)."""
+    args = _qmm_args(dev, 1024, 1024, 1024, 32, 2, 3, mask_mode="half")
+    got = qm.quant_matmul(*args, bits=2, group_size=64, require_kernel=True)
+    again = qm.quant_matmul(*args, bits=2, group_size=64,
+                            require_kernel=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("bits", [2, 3])
+def test_quant_matmul_threshold_matches_plain(dev, bits):
+    """Just below MMA_MIN_M (split-K) and at it (tensor cores): both agree
+    with the plain version on the same weights."""
+    for m in (qm.MMA_MIN_M - 1, qm.MMA_MIN_M):
+        assert qm.qmm_path(m) == ("mma" if m == qm.MMA_MIN_M else "splitk")
+        args = _qmm_args(dev, m, 2048, 520, 32, bits, 7, cap=20)
+        got = qm.quant_matmul(*args, bits=bits, group_size=64,
+                              require_kernel=True)
+        want = qm.quant_matmul_plain(*args, bits=bits, group_size=64)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+@pytest.mark.parametrize("path", ["splitk", "mma"])
+@pytest.mark.parametrize("m", [16, 130])
+def test_quant_matmul_either_path_at_any_m(dev, path, m):
+    """Each path run at a token count where the wrapper would take the
+    other one (the crossover timing does this) still matches the plain
+    version."""
+    args = _qmm_args(dev, m, 1024, 1024, 32, 2, m, cap=20)
+    got = qm._launch_qmm(path, *args, bits=2, group_size=64)
+    want = qm.quant_matmul_plain(*args, bits=2, group_size=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+@pytest.mark.parametrize("m", [4, 200])
+@pytest.mark.parametrize("group", [128, 512])
+def test_quant_matmul_kernel_wide_groups(dev, m, group):
+    """Groups of several pack blocks share one scale/zero row, on both
+    paths."""
+    args = _qmm_args(dev, m, 1024, 264, 32, 3, group + m, cap=20,
+                     group=group)
+    got = qm.quant_matmul(*args, bits=3, group_size=group,
+                          require_kernel=True)
+    want = qm.quant_matmul_plain(*args, bits=3, group_size=group)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FUSED_TOL)
 
 
 def test_dense_engine_kernels_match_ref_on_card(dev):

@@ -141,6 +141,36 @@ def test_qmm_splits_fill_the_card_at_decode():
         assert tqm.qmm_splits(1024, k, n)[0] == 1
 
 
+def _kernel_mma_min_m() -> int:
+    """``kMmaMinM`` as ``csrc/quant_matmul.cu`` defines it."""
+    import re
+    from pathlib import Path
+    src = (Path(tqm.__file__).parent / "csrc" / "quant_matmul.cu").read_text()
+    return int(re.search(r"constexpr int kMmaMinM = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("m", [1, 4, "below", "at", "above", 1024])
+def test_qmm_path_choice_mirrors_the_kernel(m):
+    """The wrapper's mirror of the kernel's path choice: the CUDA-core
+    split-K path below ``kMmaMinM`` tokens, with the decode splits of
+    Llama-3.2-3B unchanged (5 for w1/w3, 11 for w2 at M 4), and the
+    tensor-core path, one split of all K/64 pack blocks, from it."""
+    t = _kernel_mma_min_m()
+    assert tqm.MMA_MIN_M == t
+    m = {"below": t - 1, "at": t, "above": t + 1}.get(m, m)
+    for k, n, decode_splits in ((3072, 8192, 5), (8192, 3072, 11)):
+        ks, kch = tqm.qmm_splits(m, k, n)
+        if m < t:
+            assert tqm.qmm_path(m) == "splitk"
+            assert (ks, kch) == tqm.qmm_splits(m, k, n, "splitk")
+            assert (ks - 1) * kch < k // 64 <= ks * kch
+            if m == 4:
+                assert ks == decode_splits
+        else:
+            assert tqm.qmm_path(m) == "mma"
+            assert (ks, kch) == (1, k // 64)
+
+
 # ---------------------------------------------------------------------------
 # dense FFN, plain and E = 1 quantized
 # ---------------------------------------------------------------------------
