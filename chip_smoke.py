@@ -17,7 +17,11 @@ Phases:
                 router choices against the same engine with impl='ref'
   4. timing     each MoE-path kernel, its plain version and (where one
                 exists) a PyTorch library call computing the same
-                function, beside its bound
+                function, beside its bound; the fused kernel at prefill
+                on both of its paths (CUDA cores, tensor cores), split
+                into its rank-space pre-pass and main kernel, beside both
+                its bounds, and both paths at smaller C (the crossover
+                FUSED_MMA_MIN_C rests on)
   5. dense      Llama-3.2-3B at its published config (28 layers, dense
                 FFNs compressed to E = 1 stacks): the same as phase 3,
                 then the dense-path kernels timed as in phase 4, with
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -128,10 +133,11 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> dict:
 # ---------------------------------------------------------------------------
 
 def random_stack_inputs(gen, dev, E, C, K, N, R, bits, gated, rank_mode,
-                        hetero, with_rows=False):
+                        hetero, with_rows=False, rows=None):
     """Random kernel arguments of one fused-expert case; ``with_rows``
-    gives each expert an occupied-slot count (one idle expert, one full)
-    and zeroes the slots past it, as dispatch leaves them."""
+    gives each expert an occupied-slot count (one idle expert, one full),
+    or ``rows`` (a list, one count per expert) these counts, and zeroes
+    the slots past it, as dispatch leaves them."""
     from repro_torch.core.quantize import PLANES
 
     def rint(lo, hi, shape, dt):
@@ -163,10 +169,12 @@ def random_stack_inputs(gen, dev, E, C, K, N, R, bits, gated, rank_mode,
         eb = [bits if e % 2 else max(b for b in (1, 2, 3, 4) if b < bits)
               for e in range(E)]
     eb = torch.tensor(eb, dtype=torch.int32, device=dev)
-    rows = None
-    if with_rows:
+    if rows is not None:
+        rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+    elif with_rows:
         rows = rint(0, C + 1, (E,), torch.int32)
         rows[0], rows[1] = 0, C
+    if rows is not None:
         live = (torch.arange(C, device=dev)[None, :] < rows[:, None]).float()
         xe, me = xe * live[:, :, None], me * live
     return (xe, planes, scale, zero, u, u_scale, v, v_scale, me, ge, cap,
@@ -273,6 +281,34 @@ def kernel_phase(dev):
                     errs["fused_expert_matmul"], mx)
                 log(f"  ok  {name}  max|diff| {mx:.3e}")
                 del args, got, ref
+    # both main-kernel paths forced at any C: ragged C (not a multiple of
+    # the tensor-core tile's 64 tokens), 8 bits, a 3-bit container holding
+    # 2-bit experts (plane 1 masked), rows at a tile's edges (64, 65).  The
+    # plain version runs in f64 here: in f32 its own rounding at 8 bits
+    # over K 14336 reached 3.5e-3 (5 elements over FUSED_TOL), while both
+    # kernels stayed within 4.7e-4 of f64 on the H100 (PERF.md)
+    for K, N in shapes:
+        for bits, C, hetero in ((8, 1000, False),
+                                (3, qm.FUSED_MMA_MIN_C + 2, True),
+                                (2, 200, False)):
+            rows = [0, C, 64, 65, 1, 63, C // 2, C - 1]
+            args = random_stack_inputs(
+                gen, dev, E, C, K, N, 256, bits, gated=bits != 2,
+                rank_mode=("half", "full", "zero")[case % 3],
+                hetero=hetero, rows=rows)
+            case += 1
+            ref = qm.fused_expert_matmul_plain(args[0].double(), *args[1:],
+                                               bits=bits, group_size=64)
+            for path in ("simt", "mma"):
+                got = qm._launch_fused(path, *args, bits=bits, group_size=64)
+                name = (f"fused path={path} K={K} N={N} bits={bits} C={C} "
+                        f"gated={args[9] is not None} expert_bits="
+                        f"{args[11].tolist()} rows={rows}")
+                mx = allclose_report(name, got, ref, **FUSED_TOL)
+                errs["fused_expert_matmul"] = max(
+                    errs["fused_expert_matmul"], mx)
+                log(f"  ok  {name}  max|diff| {mx:.3e}")
+            del args, got, ref
     # per-channel groups (group_size = K) on one small case
     K, N = shapes[0]
     args = list(random_stack_inputs(gen, dev, E, 4, K, N, 32, 2, True,
@@ -438,12 +474,20 @@ def slice_phase(dev):
     eng = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="auto",
                       device=dev)
     eng.generate(prompts[:, :16], max_new=2)          # warm-up
-    for counter in (qm.launches, qm.qmm_launches, fd.launches):
+    for counter in (qm.launches, qm.fused_mma_launches, qm.qmm_launches,
+                    fd.launches):
         counter.reset()
     res = eng.generate(prompts, max_new=NEW, seed=0)
     launches = {"fused_expert_matmul": qm.launches.n,
                 "flash_decode_attention": fd.launches.n,
                 "quant_matmul": qm.qmm_launches.n}
+    mma_launches = qm.fused_mma_launches.n
+    log(f"  fused_expert_matmul launches on the tensor-core path "
+        f"{mma_launches} (C >= FUSED_MMA_MIN_C {qm.FUSED_MMA_MIN_C}; "
+        f"prefill C = B*P = {B * P}), on the CUDA cores "
+        f"{launches['fused_expert_matmul'] - mma_launches}")
+    if mma_launches <= 0:
+        fail("prefill never took the fused kernel's tensor-core path")
     log(f"  generate: {B} prompts x {P} tokens, {NEW} new tokens, "
         f"temperature 0: prefill {res.prefill_s * 1e3:.2f} ms, decode "
         f"{res.decode_s * 1e3:.2f} ms = {res.decode_tokens_per_s:.2f} tok/s"
@@ -464,11 +508,12 @@ def slice_phase(dev):
     return {"launches": launches, "stacks": stacks, "cfg": cfg_q,
             "prefill_ms": res.prefill_s * 1e3,
             "decode_tok_s": res.decode_tokens_per_s,
-            "compress_s": t_comp, "B": B, "P": P, "NEW": NEW}
+            "compress_s": t_comp, "B": B, "P": P, "NEW": NEW,
+            "mma_launches": mma_launches}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: timing at decode shapes
+# phase 4: timing at decode and prefill shapes
 # ---------------------------------------------------------------------------
 
 def fused_bytes_ops(xe, stack, me, ge, rows):
@@ -498,6 +543,15 @@ def fused_bytes_ops(xe, stack, me, ge, rows):
 
 def bound(nbytes, ops):
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def tc_bound(nbytes, ops):
+    """Least time of a quantized matmul on the tensor-core path: its
+    bytes, or two bf16 products (x_hi and x_lo) of each of its operations
+    at the tensor cores' dense bf16 rate, whichever is longer."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = 2 * ops / BF16_TC_FLOPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -536,6 +590,32 @@ def _ms(name: str, t: dict) -> float:
     return t["device"]
 
 
+def fused_crossover(dev, gen, st, cfg, flush, proj):
+    """One fused projection on dispatch-like inputs (C = T tokens, top-k of
+    E experts) on both main-kernel paths: {T: {path: device ms}}, the
+    timings the path threshold FUSED_MMA_MIN_C rests on."""
+    from repro_torch.kernels import quant_matmul as qm
+    E, K = st.planes[0].shape[0], st.shape[1]
+    kw = dict(bits=st.bits, group_size=st.group_size)
+    eb, ranks = st.meta_tensors()
+    out = {}
+    for T in (16, 32, 64, 96, 128, 256, 1024):
+        xe, me, ge, rows = dispatch_like(gen, dev, E, T, K, cfg.moe.top_k,
+                                         cfg.moe.quant.top_n_restore)
+        args = (xe, st.planes, st.scale, st.zero, st.u, st.u_scale, st.v,
+                st.v_scale, me, ge if proj == "w2" else None, None, eb,
+                ranks, rows)
+        out[T] = {p: _ms(f"fused crossover {proj} {p} C={T}", time_ms(
+            lambda: qm._launch_fused(p, *args, **kw), 10, flush))
+                  for p in ("simt", "mma")}
+        log(f"  fused crossover {proj} C={T} rows={rows.tolist()}: CUDA "
+            f"cores {out[T]['simt']:.4f} ms, tensor cores "
+            f"{out[T]['mma']:.4f} ms on the device (the wrapper takes "
+            f"{qm.fused_path(T)}; FUSED_MMA_MIN_C {qm.FUSED_MMA_MIN_C})")
+        del xe, me, ge, args
+    return out
+
+
 def timing_phase(dev, sl):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as fd
@@ -548,35 +628,86 @@ def timing_phase(dev, sl):
     table = {}
     # fused projection at decode (C = B tokens per expert, exact capacity)
     # and at prefill (C = B*P); top-n = 1 of top-2 -> about half the
-    # slots compensated
+    # slots compensated.  At prefill also both main-kernel paths and the
+    # parts of the call (rank-space pre-pass, main kernel)
+    cross = {}
     for proj in ("w1", "w2"):
         st = sl["stacks"][0][proj]
         K = st.shape[1]
+        kw = dict(bits=st.bits, group_size=st.group_size)
+        eb, ranks = st.meta_tensors()
         for C in (B, B * sl["P"]):
             xe, me, ge, rows = dispatch_like(gen, dev, E, C, K,
                                              cfg.moe.top_k,
                                              cfg.moe.quant.top_n_restore)
             ge = ge if proj == "w2" else None
-            eb, ranks = st.meta_tensors()
             args = (xe, st.planes, st.scale, st.zero, st.u, st.u_scale,
                     st.v, st.v_scale, me, ge, None, eb, ranks, rows)
-            kw = dict(bits=st.bits, group_size=st.group_size)
             kt = time_ms(lambda: qm.fused_expert_matmul(
                 *args, require_kernel=True, **kw), 10, flush)
             pt = time_ms(lambda: qm.fused_expert_matmul_plain(*args, **kw),
                          3, flush)
             nb, ops = fused_bytes_ops(xe, st, me, ge, rows)
             bms, by = bound(nb, ops)
+            tms, tby = tc_bound(nb, ops)
             log(f"  fused {proj} E={E} C={C} K={K} N={st.shape[2]} "
-                f"bits={st.bits} rows={rows.tolist()}: kernel {_fmt(kt)}; plain {_fmt(pt)}; "
-                f"bound {bms:.4f} ms ({by}; {nb / 1e6:.2f} MB, "
-                f"{ops / 1e9:.3f} GFLOP)")
-            if proj == "w1" and C == B:
-                table["fused_expert_matmul"] = dict(
-                    ms=_ms("fused kernel", kt),
-                    plain_ms=_ms("fused plain", pt), bound_ms=bms,
-                    bound_by=by, library_ms=None)
-            del xe, me, ge
+                f"bits={st.bits} rows={rows.tolist()} "
+                f"path={qm.fused_path(C)}: kernel {_fmt(kt)}; plain "
+                f"{_fmt(pt)}; bound f32 CUDA cores {bms:.4f} ms ({by}; "
+                f"{nb / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP), bf16 tensor "
+                f"cores x2 {tms:.4f} ms ({tby})")
+            if C == B:
+                if proj == "w1":
+                    table["fused_expert_matmul"] = dict(
+                        ms=_ms("fused kernel", kt),
+                        plain_ms=_ms("fused plain", pt), bound_ms=bms,
+                        bound_by=by, library_ms=None)
+                del xe, me, ge
+                continue
+            # prefill: the parts of the call on each path; the tensor-core
+            # main kernel also without its compensation epilogue (rank cap
+            # 0) and with every slot empty (only the zero writes)
+            parts = {"prepass": time_ms(lambda: qm._fused_parts(
+                ("prepass",), *args, **kw), 10, flush)}
+            for path in ("simt", "mma"):
+                parts[f"{path} main"] = time_ms(lambda: qm._fused_parts(
+                    (path,), *args, **kw), 10, flush)
+                parts[f"{path} all"] = time_ms(lambda: qm._launch_fused(
+                    path, *args, **kw), 10, flush)
+            cap0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+            variants = {"cap 0": args[:10] + (cap0,) + args[11:],
+                        "rows 0": args[:13] + (torch.zeros_like(rows),)}
+            for name, a in variants.items():
+                parts[f"mma main {name}"] = time_ms(
+                    lambda: qm._fused_parts(("mma",), *a, **kw),
+                    10, flush)
+            log(f"  fused {proj} C={C} parts, ms on the device: rank-space "
+                f"pre-pass {parts['prepass']['device']:.4f}; CUDA-core main "
+                f"kernel {parts['simt main']['device']:.4f} (call "
+                f"{parts['simt all']['device']:.4f}); tensor-core main "
+                f"kernel {parts['mma main']['device']:.4f} (call "
+                f"{parts['mma all']['device']:.4f}; main kernel with rank "
+                f"cap 0 {parts['mma main cap 0']['device']:.4f}, with every "
+                f"slot empty {parts['mma main rows 0']['device']:.4f}: "
+                f"{4 * E * C * st.shape[2] / 1e6:.1f} MB of zeros)")
+            if proj == "w1":
+                table["fused_expert_matmul"].update(
+                    prefill_ms=_ms("fused prefill kernel", kt),
+                    prefill_plain_ms=_ms("fused prefill plain", pt),
+                    prefill_bound_ms=tms, prefill_bound_by=tby,
+                    prefill_bound_f32_ms=bms,
+                    prefill_simt_ms=_ms("fused prefill CUDA-core path",
+                                        parts["simt all"]),
+                    prefill_prepass_ms=_ms("fused prefill pre-pass",
+                                           parts["prepass"]))
+            del xe, me, ge, args
+        cross[proj] = fused_crossover(dev, gen, st, cfg, flush, proj)
+    for T, t1 in cross["w1"].items():
+        t2 = cross["w2"][T]
+        layer = {p: 2 * t1[p] + t2[p] for p in t1}
+        log(f"  fused crossover per MoE layer (w1 + w3 + w2) C={T}: CUDA "
+            f"cores {layer['simt']:.4f} ms, tensor cores {layer['mma']:.4f}"
+            f" ms")
     # flash decode at the slice's decode shape: f32 cache of bucket length
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     S = 1 << max(sl["P"] + sl["NEW"], 1).bit_length()
@@ -692,15 +823,6 @@ def qmm_bytes_ops(M, K, N, planes, R):
     return nb, 2 * M * K * N + 2 * M * R * (K + N)
 
 
-def tc_bound(nbytes, M, K, N, R):
-    """Least time of a quant_matmul on the tensor-core path: its bytes, or
-    two bf16 products (x_hi and x_lo) of each of x @ W, x @ U and xu @ V
-    at the tensor cores' dense bf16 rate, whichever is longer."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = 2 * (2 * M * K * N + 2 * M * R * (K + N)) / BF16_TC_FLOPS * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
 def qmm_crossover(dev, gen, st, qt, flush, proj):
     """One projection at small M on both kernel paths (split-K on the CUDA
     cores, the tensor-core tile): {M: {path: device ms}}, the timings the
@@ -756,7 +878,7 @@ def dense_timing(dev, sl):
             dt = time_ms(lambda: x @ w, 10, flush)
             nb, ops_n = qmm_bytes_ops(M, K, N, qt.planes, st.pad_rank)
             bms, by = bound(nb, ops_n)
-            tms, tby = tc_bound(nb, M, K, N, st.pad_rank)
+            tms, tby = tc_bound(nb, ops_n)
             ks, kch = qm.qmm_splits(M, K, N)
             log(f"  quant_matmul {proj} M={M} K={K} N={N} bits={qt.bits} "
                 f"R={st.pad_rank} path={qm.qmm_path(M)} K-splits={ks}: "
@@ -841,6 +963,30 @@ def profile_decode(eng, prompts, step_s: float, steps: int = 4) -> None:
         log(f"    {ms / steps:8.4f} ms/step  {name[:100]}")
 
 
+def kernel_resources(ptxas_log: str, cufilt: Path):
+    """(kernel<template args>, 'N registers, ...; spills') for each kernel
+    that ``-Xptxas -v`` reports in a build log, named by the toolkit's
+    ``cu++filt`` (the mangled name where it is missing)."""
+    out, name, spill = [], None, ""
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            out.append((name, f"{line.split(':', 1)[-1].strip()}; {spill}"))
+            name = None
+    if not out or not cufilt.exists():
+        return out
+    names = subprocess.run([str(cufilt)], input="\n".join(n for n, _ in out),
+                           capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    short = [re.search(r"(\w+(?:<.*?>)?)\(", n) for n in names]
+    return [(m.group(1) if m else n, regs)
+            for m, n, (_, regs) in zip(short, names, out)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device (torch.cuda.is_available() is False)",
@@ -870,10 +1016,10 @@ def main() -> int:
     paths = build.build_all()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s: "
         f"{[p.name for p in paths.values()]}")
+    cufilt = Path(build.nvcc_path()).with_name("cu++filt")
     for src in build.SOURCES:
-        for line in build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {src}: {line.strip()}")
+        for name, regs in kernel_resources(build.build_log(src), cufilt):
+            log(f"    {src}: {name}: {regs}")
 
     log("== phase 2: kernels vs plain versions")
     errs = kernel_phase(dev)
@@ -883,6 +1029,7 @@ def main() -> int:
 
     log("== phase 4: timing")
     table = timing_phase(dev, sl)
+    table["fused_expert_matmul"]["launches_mma"] = sl["mma_launches"]
     moe = {k: sl[k] for k in ("launches", "compress_s", "prefill_ms",
                               "decode_tok_s")}
     del sl

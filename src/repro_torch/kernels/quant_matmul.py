@@ -9,10 +9,13 @@ expert e of one (layer, projection):
             * ge[e]                                      # gate
 
 The kernel (``csrc/fused_expert.cu``) is a rank-space pre-pass plus one
-main kernel; see the source note there for what bounds it on the H100 and
-what its design does about that.  ``rank_cap``, ``expert_bits`` and the
-true ``ranks`` are device tensors read by the kernel, never compile-time
-specialisations.
+main kernel with two paths, chosen by the capacity C: below
+``FUSED_MMA_MIN_C`` (decode) CUDA-core blocks walk K by pack blocks; from
+``FUSED_MMA_MIN_C`` (prefill) each expert's 64 x 128 output tiles run
+quant_matmul's tensor-core tile.  See the source note there for what
+bounds it on the H100 and what its design does about that.  ``rank_cap``,
+``expert_bits`` and the true ``ranks`` are device tensors read by the
+kernel, never compile-time specialisations.
 
 ``quant_matmul`` ports ``quant_matmul_pallas`` and
 ``lowrank_comp_matmul_pallas`` (one packed (K, N) matrix, the dense-FFN
@@ -39,6 +42,7 @@ from ..core.quantize import PACK_BLOCK, PLANES, unpack_plane
 from .build import LaunchCounter, check, load
 
 launches = LaunchCounter()          # fused_expert_matmul
+fused_mma_launches = LaunchCounter()  # ... of them on the tensor-core path
 qmm_launches = LaunchCounter()      # quant_matmul
 
 _TARGET_BLOCKS = 264                # two blocks per SM of an H100
@@ -51,7 +55,10 @@ def fused_expert_matmul_plain(xe, planes, scale, zero, u, u_scale, v,
     """Plain PyTorch version of the kernel, on the same arguments: planes
     at or above ``expert_bits[e]`` are masked, ranks at or above
     ``min(rank_cap, ranks[e])`` contribute nothing, slots at or past
-    ``rows[e]`` give zeros.  Returns (E, C, N) f32."""
+    ``rows[e]`` give zeros.  Returns (E, C, N) f32, or f64 for an f64
+    ``xe`` (the kernels' yardstick where f32's own rounding is not
+    enough: 8-bit codes over K 14336)."""
+    ct = torch.promote_types(xe.dtype, torch.float32)
     E, C, K = xe.shape
     R = u.shape[-1]
     r_idx = torch.arange(R, device=xe.device)
@@ -63,33 +70,50 @@ def fused_expert_matmul_plain(xe, planes, scale, zero, u, u_scale, v,
             sub = sub * (expert_bits[e] > off).to(torch.int32)
             codes = sub if codes is None else codes | sub
         n = codes.shape[1]
-        g = codes.float().reshape(K // group_size, group_size, n)
+        g = codes.to(ct).reshape(K // group_size, group_size, n)
         w = ((g - zero[e][:, None, :]) * scale[e][:, None, :]).reshape(K, n)
-        x = xe[e].float()
+        x = xe[e].to(ct)
         y = x @ w
         keep = r_idx < ranks[e]
         if rank_cap is not None:
             keep = keep & (r_idx < rank_cap.reshape(()))
-        xu = (x * me[e][:, None].float()) @ (u[e].float() * u_scale[e])
-        xu = xu * keep.float() * v_scale[e][:, 0]
-        y = y + xu @ v[e].float()
+        xu = (x * me[e][:, None].to(ct)) @ (u[e].to(ct) * u_scale[e])
+        xu = xu * keep.to(ct) * v_scale[e][:, 0]
+        y = y + xu @ v[e].to(ct)
         if ge is not None:
-            y = y * ge[e][:, None].float()
+            y = y * ge[e][:, None].to(ct)
         if rows is not None:
             y = y * (torch.arange(C, device=y.device) < rows[e])[:, None]
         outs.append(y)
     return torch.stack(outs)
 
 
-def _fused_lib():
-    lib = load("fused_expert.cu")
-    fn = lib.fused_expert_forward
+# C entry points of csrc/fused_expert.cu, all on the same arguments:
+# fused_expert_forward runs the pre-pass and then picks the main kernel by
+# C; the other three launch one part of a call
+_FUSED_ENTRIES = ("forward", "prepass", "simt", "mma")
+
+
+def _fused_lib(entry: str):
+    fn = getattr(load("fused_expert.cu"), f"fused_expert_{entry}")
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
         fn.argtypes = [p] * 18 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
     return fn
+
+
+# Capacity C from which fused_expert_matmul runs its tensor-core path
+# (``csrc/fused_expert.cu::kFusedMmaMinC``); below it, the CUDA cores.
+FUSED_MMA_MIN_C = 96
+
+
+def fused_path(C: int) -> str:
+    """The main-kernel path ``fused_expert_forward`` takes for capacity C:
+    'mma' (tensor cores) from ``FUSED_MMA_MIN_C``, else 'simt' (the CUDA
+    cores)."""
+    return "mma" if C >= FUSED_MMA_MIN_C else "simt"
 
 
 def xu_splits(E: int, C: int, K: int, R: int) -> int:
@@ -142,6 +166,35 @@ def fused_expert_matmul(xe: torch.Tensor, planes: Tuple[torch.Tensor, ...],
             xe, planes, scale, zero, u, u_scale, v, v_scale, me, ge,
             rank_cap, expert_bits, ranks, rows, bits=bits,
             group_size=group_size)
+    return _launch_fused(None, xe, planes, scale, zero, u, u_scale, v,
+                         v_scale, me, ge, rank_cap, expert_bits, ranks, rows,
+                         bits=bits, group_size=group_size)
+
+
+def _launch_fused(path: Optional[str], xe, planes, scale, zero, u, u_scale,
+                  v, v_scale, me, ge, rank_cap, expert_bits, ranks,
+                  rows=None, *, bits: int, group_size: int) -> torch.Tensor:
+    """Launch the fused expert kernel on CUDA tensors.  ``path`` None lets
+    ``fused_expert_forward`` choose by C, as ``fused_expert_matmul`` does;
+    'simt' or 'mma' runs the pre-pass and that main kernel at any C."""
+    entries = ("forward",) if path is None else ("prepass", path)
+    out = _fused_parts(entries, xe, planes, scale, zero, u, u_scale, v,
+                       v_scale, me, ge, rank_cap, expert_bits, ranks, rows,
+                       bits=bits, group_size=group_size)
+    launches.n += 1
+    if (path or fused_path(xe.shape[1])) == "mma":
+        fused_mma_launches.n += 1
+    return out
+
+
+def _fused_parts(entries: Tuple[str, ...], xe, planes, scale, zero, u,
+                 u_scale, v, v_scale, me, ge, rank_cap, expert_bits, ranks,
+                 rows=None, *, bits: int, group_size: int) -> torch.Tensor:
+    """Launch the named entry points of ``csrc/fused_expert.cu`` (of
+    ``_FUSED_ENTRIES``), in order, on one call's operands and scratch, and
+    return the output.  Uncounted: ``_launch_fused`` counts whole calls; a
+    part alone ('prepass', or a main kernel reading the scratch as
+    allocated, right only where no token is compensated) serves timing."""
     E, C, K = xe.shape
     N = scale.shape[-1]
     R = u.shape[-1]
@@ -155,8 +208,14 @@ def fused_expert_matmul(xe: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     if u.dtype != torch.int8 or v.dtype != torch.int8:
         raise ValueError("fused expert kernel takes int8 compensator "
                          f"factors, got {u.dtype}/{v.dtype}")
+    if any(e not in _FUSED_ENTRIES for e in entries):
+        raise ValueError(f"entries {entries}: each one of {_FUSED_ENTRIES}")
+    mma = "mma" in entries or ("forward" in entries
+                               and fused_path(C) == "mma")
     dev = xe.device
     x = xe.float().contiguous()
+    if mma and x.data_ptr() % 16:       # the mma path copies x by 16 bytes
+        x = x.clone()
     mef = me.float().contiguous()
     gef = None if ge is None else ge.float().contiguous()
     out = torch.empty((E, C, N), dtype=torch.float32, device=dev)
@@ -166,13 +225,12 @@ def fused_expert_matmul(xe: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     p0 = _ptr(planes[0], torch.uint8, "planes[0]", dev)
     p1 = _ptr(planes[1], torch.uint8, "planes[1]", dev) \
         if len(planes) > 1 else None
-    fn = _fused_lib()
-    rc = fn(_ptr(x, torch.float32, "xe", dev), p0, p1,
+    args = (_ptr(x, torch.float32, "xe", dev), p0, p1,
             _ptr(scale, torch.float32, "scale", dev, 16),
             _ptr(zero, torch.float32, "zero", dev, 16),
             _ptr(u, torch.int8, "u", dev, 1),
             _ptr(u_scale, torch.float32, "u_scale", dev),
-            _ptr(v, torch.int8, "v", dev, 1),
+            _ptr(v, torch.int8, "v", dev, 4 if mma else 1),
             _ptr(v_scale, torch.float32, "v_scale", dev),
             _ptr(mef, torch.float32, "me", dev),
             _ptr(gef, torch.float32, "ge", dev),
@@ -182,11 +240,11 @@ def fused_expert_matmul(xe: torch.Tensor, planes: Tuple[torch.Tensor, ...],
             _ptr(rows, torch.int32, "rows", dev),
             _ptr(partial, torch.float32, "partial", dev),
             _ptr(xu, torch.float32, "xu", dev),
-            _ptr(out, torch.float32, "out", dev),
+            _ptr(out, torch.float32, "out", dev, 16),
             E, C, K, N, R, ks, bits, group_size,
             torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "fused_expert_forward")
-    launches.n += 1
+    for entry in entries:
+        check(_fused_lib(entry)(*args), f"fused_expert_{entry}")
     return out
 
 

@@ -31,7 +31,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _fused_args(dev, E, C, K, N, R, bits, gated, cap, eb, seed):
+def _fused_args(dev, E, C, K, N, R, bits, gated, cap, eb, seed, group=64):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rint(lo, hi, shape, dt):
@@ -40,8 +40,8 @@ def _fused_args(dev, E, C, K, N, R, bits, gated, cap, eb, seed):
 
     planes = tuple(rint(0, 256, (E, K * p // 8, N), torch.uint8)
                    for p, _ in PLANES[bits])
-    scale = torch.rand((E, K // 64, N), generator=g, device=dev) * 0.02
-    zero = torch.rand((E, K // 64, N), generator=g, device=dev) * 3
+    scale = torch.rand((E, K // group, N), generator=g, device=dev) * 0.02
+    zero = torch.rand((E, K // group, N), generator=g, device=dev) * 3
     u = rint(-127, 128, (E, K, R), torch.int8)
     v = rint(-127, 128, (E, R, N), torch.int8)
     us = torch.rand((E, 1, R), generator=g, device=dev) * 1e-3
@@ -57,19 +57,44 @@ def _fused_args(dev, E, C, K, N, R, bits, gated, cap, eb, seed):
     return (xe, planes, scale, zero, u, us, v, vs, me, ge, capt, ebt, ranks)
 
 
+def _with_rows(args, rows):
+    """Zero x and the mask past each expert's occupied slots, as dispatch
+    leaves them, and append the counts."""
+    dev = args[0].device
+    rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+    c = args[0].shape[1]
+    live = (torch.arange(c, device=dev)[None] < rows[:, None]).float()
+    args = list(args)
+    args[0] = args[0] * live[:, :, None]
+    args[8] = args[8] * live
+    return (*args, rows)
+
+
 @pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("c", [1, 3, 8, 21])
-def test_fused_kernel_matches_plain(dev, bits, c):
+@pytest.mark.parametrize("c", [1, 3, 8, 21, 130, 300])
+@pytest.mark.parametrize("path", [None, "simt", "mma"])
+@pytest.mark.parametrize("group", [64, 128, 256])
+def test_fused_kernel_matches_plain(dev, bits, c, path, group):
+    """Each main kernel (path None: the one the wrapper takes by C) at any
+    C, also where the wrapper would take the other one, with and without
+    occupied-slot counts, in groups of one pack block, of two, and of all
+    of K (per channel)."""
     eb = [bits, max(1, bits - 1), bits, bits]
-    args = _fused_args(dev, 4, c, 256, 260, 48, bits, gated=c % 2 == 1,
-                       cap=[None, 0, 17, 48][c % 4], eb=eb, seed=bits * c)
-    before = qm.launches.n
-    got = qm.fused_expert_matmul(*args, bits=bits, group_size=64,
-                                 require_kernel=True)
-    assert qm.launches.n == before + 1
-    want = qm.fused_expert_matmul_plain(*args, bits=bits, group_size=64)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, **FUSED_TOL)
+    args = _fused_args(dev, 4, c, 256, 260, 48, bits,
+                       gated=(c + group // 64) % 2 == 0,
+                       cap=[None, 0, 17, 48][c % 4], eb=eb, seed=bits * c,
+                       group=group)
+    for a in (args, _with_rows(args, [c, c // 2, 0, min(c, 65)])):
+        before = qm.launches.n
+        if path is None:
+            got = qm.fused_expert_matmul(*a, bits=bits, group_size=group,
+                                         require_kernel=True)
+        else:
+            got = qm._launch_fused(path, *a, bits=bits, group_size=group)
+        assert qm.launches.n == before + 1
+        want = qm.fused_expert_matmul_plain(*a, bits=bits, group_size=group)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **FUSED_TOL)
 
 
 @pytest.mark.parametrize("c", [1, 4, 37])
@@ -91,6 +116,62 @@ def test_fused_kernel_skips_empty_slots(dev, c):
     torch.testing.assert_close(got, want, **FUSED_TOL)
     torch.testing.assert_close(got, full, **FUSED_TOL)
     assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("c", ["at", "above", 200])
+def test_fused_mma_path_matches_plain(dev, bits, c):
+    """The tensor-core main kernel against the plain version: C at the
+    threshold and ragged (not a multiple of the 64-token tile), rows 0,
+    64, 65 (a tile edge) and C, heterogeneous expert widths (at 3 bits a
+    2-bit expert, whose plane 1 is masked), rank cap full, zero and half,
+    gated and not."""
+    C = {"at": qm.FUSED_MMA_MIN_C, "above": qm.FUSED_MMA_MIN_C + 2}.get(c, c)
+    eb = [bits, max(1, bits - 1), bits, bits]
+    for i, cap in enumerate((None, 0, 24)):
+        args = _with_rows(_fused_args(dev, 4, C, 256, 260, 48, bits,
+                                      gated=i != 1, cap=cap, eb=eb,
+                                      seed=bits * C + i), [0, 64, 65, C])
+        before = (qm.launches.n, qm.fused_mma_launches.n)
+        got = qm._launch_fused("mma", *args, bits=bits, group_size=64)
+        assert (qm.launches.n, qm.fused_mma_launches.n) == \
+            (before[0] + 1, before[1] + 1)
+        want = qm.fused_expert_matmul_plain(*args, bits=bits, group_size=64)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **FUSED_TOL)
+        assert float(got[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bits", [2, 3])
+def test_fused_threshold_routes_and_matches_plain(dev, bits):
+    """Just below FUSED_MMA_MIN_C the wrapper takes the CUDA cores, at it
+    the tensor cores; both agree with the plain version."""
+    for c in (qm.FUSED_MMA_MIN_C - 1, qm.FUSED_MMA_MIN_C):
+        mma = c == qm.FUSED_MMA_MIN_C
+        assert qm.fused_path(c) == ("mma" if mma else "simt")
+        args = _with_rows(_fused_args(dev, 4, c, 512, 260, 32, bits,
+                                      gated=True, cap=20,
+                                      eb=[bits, 2, bits, 1], seed=c),
+                          [c, c - 3, 70, 0])
+        before = qm.fused_mma_launches.n
+        got = qm.fused_expert_matmul(*args, bits=bits, group_size=64,
+                                     require_kernel=True)
+        assert qm.fused_mma_launches.n == before + mma
+        want = qm.fused_expert_matmul_plain(*args, bits=bits, group_size=64)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+def test_fused_mma_path_is_deterministic(dev):
+    """The tensor-core path at prefill size returns the same bits on every
+    call (no float atomics)."""
+    args = _with_rows(_fused_args(dev, 4, 512, 1024, 512, 32, 2, gated=True,
+                                  cap=None, eb=[2] * 4, seed=3),
+                      [512, 300, 129, 0])
+    got = qm._launch_fused("mma", *args, bits=2, group_size=64)
+    again = qm._launch_fused("mma", *args, bits=2, group_size=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])

@@ -1,10 +1,14 @@
 """PyTorch port vs the JAX package: greedy ``ServeEngine.generate`` on
 reduced Mixtral-8x7B with JAX-compressed experts is token-identical, and
-its router trace and log-probs agree."""
+its router trace and log-probs agree, in f32 with a bf16 or an int8 KV
+cache and with bf16 params."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.models import init_params as j_init_params
 from repro.models.transformer import compress_moe_params as j_compress
@@ -30,7 +34,6 @@ def _jax_engine_run(prompts, max_new):
 
 @pytest.mark.parametrize("impl", ["auto", "ref"])
 def test_greedy_generate_token_identical(impl):
-    import dataclasses
     from repro_torch.registry import get_config
     prompts = np.random.default_rng(5).integers(2, 512, (2, 11)) \
         .astype(np.int32)
@@ -46,6 +49,62 @@ def test_greedy_generate_token_identical(impl):
     np.testing.assert_allclose(res.logprobs, want.logprobs, rtol=1e-4,
                                atol=1e-4)
     assert res.steps == 8 and res.decode_tokens_per_s > 0
+
+
+def _jax_bf16_compressed():
+    """The reduced model initialised in bf16 (same key) and compressed by
+    JAX: the weights differ from the f32 model's by bf16 rounding, so the
+    f32 compression cannot be reused for it."""
+    if "jq_bf16" not in _CACHE:
+        jcfg = j_get_config("mixtral-8x7b", reduced=True)
+        jp = j_init_params(jax.random.key(3), jcfg, jnp.bfloat16)
+        _CACHE["jq_bf16"], _CACHE["jcfg_q_bf16"], _ = j_compress(jp, jcfg)
+    return _CACHE["jq_bf16"], _CACHE["jcfg_q_bf16"]
+
+
+# variant -> (kv_bits, params dtype, log-prob rtol, atol).  f32 keeps the
+# limits of the default case.  In bf16 both engines round activations to 8
+# bits of mantissa at different places (the port's plain kernels accumulate
+# in f32 and round once; XLA rounds inside its fused ops), and a log-prob
+# of magnitude 4..8 (log 512 = 6.2 for the reduced vocabulary) has bf16
+# steps of 2^-5: the absolute limit 0.0625 is two of them (0.031 seen on
+# this model), with no relative part on top.
+_VARIANTS = {"kv8-f32": (8, "float32", 1e-4, 1e-4),
+             "kv16-bf16": (16, "bfloat16", 0.0, 0.0625),
+             "kv8-bf16": (8, "bfloat16", 0.0, 0.0625)}
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+@pytest.mark.parametrize("variant", list(_VARIANTS))
+def test_greedy_generate_matches_jax_variants(variant, impl):
+    """The int8 KV cache, in f32 (on the cached JAX compression) and in
+    bf16, and bf16 params with a bf16 cache: tokens and router trace
+    identical, log-probs within the variant's limit."""
+    from repro_torch.registry import get_config
+    kv_bits, dtype, rtol, atol = _VARIANTS[variant]
+    prompts = np.random.default_rng(5).integers(2, 512, (2, 11)) \
+        .astype(np.int32)
+    if dtype == "bfloat16":
+        jq, jcfg_q = _jax_bf16_compressed()
+    else:
+        m = _jax_engine_run(prompts, 8)
+        jq, jcfg_q = m["jq"], m["jcfg_q"]
+    key = f"run-{variant}"
+    if key not in _CACHE:
+        _CACHE[key] = JServeEngine(
+            dataclasses.replace(jcfg_q, kv_bits=kv_bits), jq,
+            quantized=True, kernel_impl="ref").generate(prompts, 8)
+    want = _CACHE[key]
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", reduced=True),
+                              force_unroll_plan=True, kv_bits=kv_bits)
+    params = params_from_jax(jax.tree.map(np.asarray, jq), "cpu")
+    assert params["embed"]["tok"].dtype == getattr(torch, dtype)
+    res = ServeEngine(cfg, params, quantized=True, kernel_impl=impl,
+                      device="cpu").generate(prompts, 8)
+    np.testing.assert_array_equal(res.tokens, want.tokens)
+    np.testing.assert_array_equal(res.router_trace, want.router_trace)
+    np.testing.assert_allclose(res.logprobs, want.logprobs, rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.parametrize("n", [1, 16, 17, 33, 300])

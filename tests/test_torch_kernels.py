@@ -6,6 +6,8 @@ under the interpreter.  Same inputs (numpy, from a seed) and the same
 JAX-compressed stacks (moved by ``repro_torch.bridge``) on both sides.
 """
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from repro.models.kvcache import _kv_quant as j_kv_quant
 from repro_torch.bridge import stack_to_torch
 from repro_torch.kernels import decode_attention as tfd
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.models.attention import decode_attention as t_decode
 
 TOL = dict(rtol=1e-4, atol=1e-3)      # tests/test_fused_kernel.py:28
@@ -128,6 +131,25 @@ def test_cuda_impl_refuses_cpu_tensors():
                                  torch.from_numpy(me), impl="cuda")
     with pytest.raises(ValueError, match="unknown kernel impl"):
         tops.resolve_impl("pallas")
+
+
+def _kernel_fused_mma_min_c() -> int:
+    """``kFusedMmaMinC`` as ``csrc/fused_expert.cu`` defines it."""
+    src = (Path(tqm.__file__).parent / "csrc" / "fused_expert.cu").read_text()
+    return int(re.search(r"constexpr int kFusedMmaMinC = (\d+);",
+                         src).group(1))
+
+
+@pytest.mark.parametrize("c", [1, 4, "below", "at", "above", 1024])
+def test_fused_path_choice_mirrors_the_kernel(c):
+    """The wrapper's mirror of the fused kernel's path choice: the CUDA
+    cores below ``kFusedMmaMinC`` (decode, C = batch 4, among them), the
+    tensor cores from it (exact-capacity prefill, C = 4 x 256)."""
+    t = _kernel_fused_mma_min_c()
+    assert tqm.FUSED_MMA_MIN_C == t
+    c = {"below": t - 1, "at": t, "above": t + 1}.get(c, c)
+    assert tqm.fused_path(c) == ("mma" if c >= t else "simt")
+    assert tqm.fused_path(4) == "simt" and tqm.fused_path(1024) == "mma"
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@
     python3 tools/qmm_mma_ablation.py
 
 Builds three variants of ``src/repro_torch/kernels/csrc/quant_matmul.cu``
-beside the real kernel (into the git-ignored build directory): one whose
-blocks skip the conversion of each pack block (x into its bf16 parts, the
+beside the real kernel (into the git-ignored build directory), each with
+its own edited copy of the tensor-core tile (``csrc/quant_mma.cuh``): one
+whose blocks skip the conversion of each pack block (x into its bf16 parts, the
 plane words into bf16 codes), one that skips the mma, and one that skips
 both, so that only the cp.async ring, the barriers and the fold remain.
 Each is timed like ``chip_smoke.py`` times a kernel (CUDA events, stream
@@ -25,7 +26,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# variant -> the source edits that make it
+# variant -> the edits of quant_mma.cuh that make it
 CONVERT = "    mma_convert<BITS>(ring + (pb % S::RING) * S::STAGE, op);\n"
 MMA = "    for (int kk = 0; kk < PACK / 16; ++kk) {\n"
 NO_MMA = "    for (int kk = 0; kk < 0; ++kk) {\n"
@@ -36,23 +37,25 @@ VARIANTS = {"full": [], "no convert": [(CONVERT, "")],
 
 def build_variants(build):
     """One shared library per variant, all nvcc processes at once."""
-    src = (build.CSRC / "quant_matmul.cu").read_text()
-    out_dir = build.BUILD_DIR / "ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    tile = (build.CSRC / "quant_mma.cuh").read_text()
     procs = {}
     for name, edits in VARIANTS.items():
-        text = src
+        text = tile
         for old, new in edits:
             if text.count(old) != 1:
-                sys.exit(f"quant_matmul.cu no longer has {old.strip()!r} "
+                sys.exit(f"quant_mma.cuh no longer has {old.strip()!r} "
                          "once; update the ablation's edits")
             text = text.replace(old, new)
-        stem = name.replace(" ", "_")
-        cu = out_dir / f"{stem}.cu"
-        cu.write_text(text)
-        procs[name] = (out_dir / f"{stem}.so", subprocess.Popen(
+        # the variant's directory holds its header, which the quoted
+        # include finds before the one in csrc/
+        out_dir = build.BUILD_DIR / "ablation" / name.replace(" ", "_")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "quant_mma.cuh").write_text(text)
+        cu = out_dir / "quant_matmul.cu"
+        cu.write_text((build.CSRC / "quant_matmul.cu").read_text())
+        procs[name] = (out_dir / "variant.so", subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
-             "-o", str(out_dir / f"{stem}.so"), str(cu)],
+             "-o", str(out_dir / "variant.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
