@@ -21,7 +21,9 @@ Phases:
                 on both of its paths (CUDA cores, tensor cores), split
                 into its rank-space pre-pass and main kernel, beside both
                 its bounds, and both paths at smaller C (the crossover
-                FUSED_MMA_MIN_C rests on)
+                FUSED_MMA_MIN_C rests on); flash-decode at the slice's
+                S 512 and at long context (S 4096, 32768) for each cache
+                type, beside its byte bound, its rate and SDPA
   5. dense      Llama-3.2-3B at its published config (28 layers, dense
                 FFNs compressed to E = 1 stacks): the same as phase 3,
                 then the dense-path kernels timed as in phase 4, with
@@ -323,39 +325,47 @@ def kernel_phase(dev):
 
     errs["quant_matmul"] = qmm_kernel_cases(dev, gen)
 
-    B, KVH, hd, S = 4, 8, 128, 512
-    flash_cases = [(32, kind, window, filled)      # Mixtral, G = 4
-                   for kind in ("f32", "bf16", "int8")
-                   for window, filled in ((None, 288), (128, 288),
-                                          (None, 10))]
-    flash_cases += [(24, kind, None, filled)       # Llama-3.2-3B, G = 3;
-                    for kind in ("f32", "int8")    # filled 0: no valid slot
+    # flash-decode: (B, H, KVH, hd, S, filled, kinds, windows); filled
+    # "ring" is a wrapped ring cache, every slot written, positions out of
+    # order.  The slices' shapes first (Mixtral G 4, Llama G 3 with a row
+    # of no valid slot), then batch 1, 160 rows (a cluster of one), long
+    # S, rings with a window, hd 64 and 256, G 1 and G 8
+    flash_cases = [(4, 32, 8, 128, 512, filled, ("f32", "bf16", "int8"),
+                    windows) for filled, windows in ((288, (None, 128)),
+                                                     (10, (None,)))]
+    flash_cases += [(4, 24, 8, 128, 512, filled, ("f32", "int8"), (None,))
                     for filled in (288, 0)]
-    for H, kind, window, filled in flash_cases:
-        q = torch.randn((B, H, hd), generator=gen, device=dev) / math.sqrt(hd)
-        k = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
-        v = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
-        ar = torch.arange(S, device=dev, dtype=torch.int32)
-        pos = torch.where(ar < filled, ar, -1)[None].repeat(B, 1)
-        cur = torch.full((B,), max(filled, 1) - 1, dtype=torch.int32,
-                         device=dev)
-        ks = vs = None
-        if kind == "bf16":
-            k, v = k.bfloat16(), v.bfloat16()
-        elif kind == "int8":
-            from repro_torch.models.kvcache import _kv_quant
-            k, ks = _kv_quant(k)
-            v, vs = _kv_quant(v)
-        got = fd.flash_decode_attention(q, k, v, pos, cur, ks, vs,
-                                        window=window, require_kernel=True)
-        ref = fd.flash_decode_attention_plain(q, k, v, pos, cur, ks, vs,
-                                              window=window)
-        name = (f"flash_decode H={H} KVH={KVH} kv={kind} window={window} "
-                f"filled={filled}")
-        mx = allclose_report(name, got, ref, **DECODE_TOL)
-        errs["flash_decode_attention"] = max(
-            errs["flash_decode_attention"], mx)
-        log(f"  ok  {name}  max|diff| {mx:.3e}")
+    flash_cases += [(1, 32, 8, 128, 512, 288, ("f32", "int8"), (None,)),
+                    (20, 32, 8, 128, 512, 300, ("f32",), (None,)),
+                    (4, 32, 8, 128, 32768, 32768, ("f32", "bf16", "int8"),
+                     (None,)),
+                    (4, 32, 8, 128, 4096, "ring", ("f32", "bf16", "int8"),
+                     (None, 1000)),
+                    (4, 16, 4, 64, 1000, 700, ("f32", "bf16"), (None, 300)),
+                    (2, 16, 8, 256, 2048, "ring", ("f32", "int8"), (700,)),
+                    (4, 8, 8, 128, 1003, 1003, ("f32",), (None,)),
+                    (4, 64, 8, 128, 1003, 900, ("bf16",), (None,))]
+    for B, H, KVH, hd, S, filled, kinds, windows in flash_cases:
+        for kind in kinds:
+            ring = filled == "ring"
+            args = flash_inputs(gen, dev, B, H, KVH, hd, S,
+                                S if ring else filled, kind, ring)
+            spw = fd.slots_per_warp(hd, args[1].element_size())
+            cl = fd.launch_geometry(B * KVH, S, spw, fd.cluster_capacity(
+                dev, fd._KV_KIND[args[1].dtype], hd, H // KVH))
+            for window in windows:
+                got = fd.flash_decode_attention(*args, window=window,
+                                                require_kernel=True)
+                ref = fd.flash_decode_attention_plain(*args, window=window)
+                name = (f"flash_decode B={B} H={H} KVH={KVH} hd={hd} S={S} "
+                        f"kv={kind} window={window} filled={filled} "
+                        f"cluster={cl}")
+                mx = allclose_report(name, got, ref, **DECODE_TOL)
+                errs["flash_decode_attention"] = max(
+                    errs["flash_decode_attention"], mx)
+                log(f"  ok  {name}  max|diff| {mx:.3e}")
+            del args, got, ref
+            torch.cuda.empty_cache()
     return errs
 
 
@@ -590,6 +600,159 @@ def _ms(name: str, t: dict) -> float:
     return t["device"]
 
 
+def flash_inputs(gen, dev, B, H, KVH, hd, S, filled, kind="f32",
+                 ring=False):
+    """Random flash-decode arguments (q, k, v, kv_pos, cur, k_scale,
+    v_scale): q pre-scaled by 1/sqrt(hd), a (B, S, KVH, hd) cache of
+    ``kind`` (f32, bf16, or int8 with bf16 scales) whose slots 0..filled-1
+    hold positions 0..filled-1 and the rest are empty (-1).  ``ring``: a
+    ring cache that has wrapped, every slot written and its positions out
+    of order (slot s holds the newest position p <= cur with p % S == s,
+    cur = S + S // 3)."""
+    q = torch.randn((B, H, hd), generator=gen, device=dev) / math.sqrt(hd)
+    k = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
+    v = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
+    ar = torch.arange(S, device=dev, dtype=torch.int32)
+    c = S + S // 3 if ring else max(filled, 1) - 1
+    pos = c - (c - ar) % S if ring else torch.where(ar < filled, ar, -1)
+    pos = pos[None].repeat(B, 1).contiguous()
+    cur = torch.full((B,), c, dtype=torch.int32, device=dev)
+    ks = vs = None
+    if kind == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    elif kind == "int8":
+        from repro_torch.models.kvcache import _kv_quant
+        k, ks = _kv_quant(k)
+        v, vs = _kv_quant(v)
+    return q, k, v, pos, cur, ks, vs
+
+
+def flash_bytes_ops(q, k, pos, cur, ks, window=None):
+    """Least bytes and operations of one flash-decode call on these inputs:
+    the K and V rows (and int8 scales) of the valid slots, the positions,
+    cur and q read once, the output written once; per valid slot and query
+    head, hd multiply-adds for the score and hd for the value sum."""
+    B, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    valid = (pos >= 0) & (pos <= cur[:, None])
+    if window:
+        valid &= pos > cur[:, None] - window
+    n = int(valid.sum())
+    row = hd * k.element_size() + (0 if ks is None else 2)
+    nb = 2 * n * KVH * row + 4 * B * S + 4 * B + 8 * B * H * hd
+    return nb, 4 * n * H * hd
+
+
+def sdpa_call(q, k, v, pos, cur, ks):
+    """The yardstick: one ``scaled_dot_product_attention`` call (GQA, bool
+    mask) computing the same function, in the cache's float type; None for
+    an int8 cache, which no single PyTorch call reads."""
+    import torch.nn.functional as F
+    if ks is not None:
+        return None
+    qs = q[:, :, None, :].to(k.dtype)
+    kT, vT = k.transpose(1, 2), v.transpose(1, 2)
+    mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qs, kT, vT, attn_mask=mask, scale=1.0, enable_gqa=True)
+
+
+def kernels_by_name(fn, flush, calls: int = 100) -> dict:
+    """{kernel name: (mean device ms of one launch, launches seen)} over
+    ``calls`` calls of ``fn`` under the profiler, L2 overwritten before
+    each (the overwrite's own kernel left out).  The profiler may miss an
+    event now and then, so the count is reported, not assumed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    seen = {(ev.name, ev.time_range.start, ev.time_range.end): ev
+            for ev in prof.events() if ev.device_type == DeviceType.CUDA}
+    by = {}
+    for (name, _, _), ev in seen.items():
+        if "bitwise_not" in name:
+            continue
+        ms, cnt = by.get(name, (0.0, 0))
+        by[name] = (ms + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+    return {n: (ms / cnt, cnt) for n, (ms, cnt) in by.items()}
+
+
+def flash_slice_timing(dev, gen, flush, sl) -> dict:
+    """Flash-decode at a slice's decode shape (its cache bucket, the
+    prompt and new tokens valid, f32) beside its plain version, SDPA and
+    its bound; the ``kernels`` line's entry."""
+    from repro_torch.kernels import decode_attention as fd
+    cfg, B = sl["cfg"], sl["B"]
+    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    filled = sl["P"] + sl["NEW"]
+    S = 1 << filled.bit_length()
+    args = flash_inputs(gen, dev, B, H, KVH, hd, S, filled)
+    q, k, v, pos, cur, _, _ = args
+    kt = time_ms(lambda: fd.flash_decode_attention(
+        *args, require_kernel=True), 20, flush)
+    pt = time_ms(lambda: fd.flash_decode_attention_plain(*args), 20, flush)
+    sd = sdpa_call(q, k, v, pos, cur, None)
+    lt = time_ms(sd, 20, flush)
+    got = fd.flash_decode_attention(*args, require_kernel=True)
+    allclose_report("flash_decode vs SDPA", got, sd()[:, :, 0], atol=1e-4,
+                    rtol=1e-4)
+    bms, by = bound(*flash_bytes_ops(q, k, pos, cur, None))
+    log(f"  flash_decode B={B} H={H} KVH={KVH} (G={H // KVH}) hd={hd} S={S} "
+        f"valid={filled} f32: kernel {_fmt(kt)}; plain {_fmt(pt)}; SDPA "
+        f"{_fmt(lt)}; bound {bms:.4f} ms ({by})")
+    return dict(ms=_ms("flash-decode kernel", kt),
+                plain_ms=_ms("flash-decode plain", pt), bound_ms=bms,
+                bound_by=by, library_ms=_ms("SDPA", lt))
+
+
+def flash_long_timing(dev, gen, flush) -> dict:
+    """Flash-decode from the slice's length to long context, every slot
+    valid beyond the slice's S 512 (288 valid): Mixtral's shape (B 4, H 32,
+    KVH 8, hd 128) for each cache type at S 512, 4096 and 32768, and
+    Llama-3.2-3B's (H 24) at S 32768, f32; each beside its bound, its
+    achieved rate and SDPA's time; the kernels of one call at S 512 by
+    name.  Returns the Mixtral f32 S 32768 row."""
+    from repro_torch.kernels import decode_attention as fd
+    cases = [(32, kind, S, filled) for kind in ("f32", "bf16", "int8")
+             for S, filled in ((512, 288), (4096, 4096), (32768, 32768))]
+    cases.append((24, "f32", 32768, 32768))
+    out = {}
+    for H, kind, S, filled in cases:
+        args = flash_inputs(gen, dev, 4, H, 8, 128, S, filled, kind)
+        q, k, v, pos, cur, ks, vs = args
+        kt = time_ms(lambda: fd.flash_decode_attention(
+            *args, require_kernel=True), 10, flush)
+        sd = sdpa_call(q, k, v, pos, cur, ks)
+        lt = None if sd is None else time_ms(sd, 10, flush)
+        nb, ops = flash_bytes_ops(q, k, pos, cur, ks)
+        bms, by = bound(nb, ops)
+        ms = _ms(f"flash_decode long {kind} S={S}", kt)
+        log(f"  flash_decode long B=4 H={H} KVH=8 hd=128 S={S} valid="
+            f"{filled} kv={kind}: kernel {_fmt(kt)}, {nb / ms / 1e6:.1f} "
+            f"GB/s ({100 * bms / ms:.1f}% of the bound); bound {bms:.4f} ms "
+            f"({by}; {nb / 1e6:.2f} MB); SDPA "
+            f"{'none (int8)' if lt is None else _fmt(lt)}")
+        if S == 512:
+            parts = kernels_by_name(lambda: fd.flash_decode_attention(
+                *args, require_kernel=True), flush)
+            log(f"  flash_decode S=512 kv={kind}, by kernel over 100 calls "
+                f"(profiler): " + "; ".join(
+                    f"{n[:70]} {c} launches, {t:.4f} ms each"
+                    for n, (t, c) in sorted(parts.items())))
+        if H == 32 and kind == "f32" and S == 32768:
+            out = dict(long_ms=ms, long_bound_ms=bms,
+                       long_library_ms=_ms("SDPA long", lt))
+        del args, q, k, v, pos, cur, ks, vs
+        torch.cuda.empty_cache()
+    return out
+
+
 def fused_crossover(dev, gen, st, cfg, flush, proj):
     """One fused projection on dispatch-like inputs (C = T tokens, top-k of
     E experts) on both main-kernel paths: {T: {path: device ms}}, the
@@ -617,7 +780,6 @@ def fused_crossover(dev, gen, st, cfg, flush, proj):
 
 
 def timing_phase(dev, sl):
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import quant_matmul as qm
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -709,38 +871,14 @@ def timing_phase(dev, sl):
             f"cores {layer['simt']:.4f} ms, tensor cores {layer['mma']:.4f}"
             f" ms")
     # flash decode at the slice's decode shape: f32 cache of bucket length
-    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    S = 1 << max(sl["P"] + sl["NEW"], 1).bit_length()
-    filled = sl["P"] + sl["NEW"]
-    q = torch.randn((B, H, hd), generator=gen, device=dev) / math.sqrt(hd)
-    k = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
-    v = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
-    ar = torch.arange(S, device=dev, dtype=torch.int32)
-    pos = torch.where(ar < filled, ar, -1)[None].repeat(B, 1)
-    cur = torch.full((B,), filled - 1, dtype=torch.int32, device=dev)
-    kt = time_ms(lambda: fd.flash_decode_attention(
-        q, k, v, pos, cur, require_kernel=True), 20, flush)
-    pt = time_ms(lambda: fd.flash_decode_attention_plain(q, k, v, pos, cur),
-                 20, flush)
-    qs = q[:, :, None, :]
-    kT, vT = k.transpose(1, 2), v.transpose(1, 2)
-    mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
-    lt = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, kT, vT, attn_mask=mask, scale=1.0, enable_gqa=True), 20, flush)
-    got = fd.flash_decode_attention(q, k, v, pos, cur, require_kernel=True)
-    want = F.scaled_dot_product_attention(qs, kT, vT, attn_mask=mask,
-                                          scale=1.0, enable_gqa=True)[:, :, 0]
-    allclose_report("flash_decode vs SDPA", got, want, atol=1e-4, rtol=1e-4)
-    nb = 2 * B * filled * KVH * hd * 4 + 4 * B * S + 4 * B + 8 * B * H * hd
-    ops = 4 * B * H * filled * hd
-    bms, by = bound(nb, ops)
-    log(f"  flash_decode B={B} H={H} KVH={KVH} hd={hd} S={S} valid={filled} "
-        f"f32: kernel {_fmt(kt)}; plain {_fmt(pt)}; SDPA {_fmt(lt)}; "
-        f"bound {bms:.4f} ms ({by})")
-    table["flash_decode_attention"] = dict(
-        ms=_ms("flash-decode kernel", kt),
-        plain_ms=_ms("flash-decode plain", pt), bound_ms=bms, bound_by=by,
-        library_ms=_ms("SDPA", lt))
+    table["flash_decode_attention"] = flash_slice_timing(dev, gen, flush, sl)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kind, name in enumerate(("f32", "bf16", "int8")):
+        cap = fd.cluster_capacity(dev, kind, 128, 4)
+        log(f"  flash_decode kv={name} hd=128 G=4: clusters resident at once "
+            f"by size (cudaOccupancyMaxActiveClusters) " + ", ".join(
+                f"{cl}: {cap(cl)}" for cl in fd.CLUSTERS) + f"; {sms} SMs")
+    table["flash_decode_attention"].update(flash_long_timing(dev, gen, flush))
     return table
 
 
@@ -851,7 +989,6 @@ def dense_timing(dev, sl):
     cores), and (context only) cuBLAS ``x @ W`` on the dequantized f32
     weight; w1 and w2 on both paths at small M (the path threshold); and
     flash-decode at the dense slice's decode shape (G = 3)."""
-    from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels.ref import dequant_ref
@@ -907,24 +1044,7 @@ def dense_timing(dev, sl):
         layer = {p: 2 * t1[p] + t2[p] for p in t1}
         log(f"  crossover per layer (w1 + w3 + w2) M={M}: split-K "
             f"{layer['splitk']:.4f} ms, tensor cores {layer['mma']:.4f} ms")
-    H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    S = 1 << max(sl["P"] + sl["NEW"], 1).bit_length()
-    filled = sl["P"] + sl["NEW"]
-    q = torch.randn((B, H, hd), generator=gen, device=dev) / math.sqrt(hd)
-    k = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
-    v = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
-    ar = torch.arange(S, device=dev, dtype=torch.int32)
-    pos = torch.where(ar < filled, ar, -1)[None].repeat(B, 1)
-    cur = torch.full((B,), filled - 1, dtype=torch.int32, device=dev)
-    kt = time_ms(lambda: fd.flash_decode_attention(
-        q, k, v, pos, cur, require_kernel=True), 20, flush)
-    pt = time_ms(lambda: fd.flash_decode_attention_plain(q, k, v, pos, cur),
-                 20, flush)
-    nb = 2 * B * filled * KVH * hd * 4 + 4 * B * S + 4 * B + 8 * B * H * hd
-    bms, by = bound(nb, 4 * B * H * filled * hd)
-    log(f"  flash_decode B={B} H={H} KVH={KVH} (G={H // KVH}) hd={hd} S={S} "
-        f"valid={filled} f32: kernel {_fmt(kt)}; plain {_fmt(pt)}; bound "
-        f"{bms:.4f} ms ({by})")
+    flash_slice_timing(dev, gen, flush, sl)
     return table
 
 

@@ -4,13 +4,16 @@ Port of ``repro/kernels/decode_attention.py::flash_decode_attention``:
 GQA attention of one query token per row against a (B, S, KVH, hd)
 cache, masked by ``pos >= 0 & pos <= cur`` (``& pos > cur - window``),
 with an int8 cache's per-(slot, head) scales folded into the scores and
-the probabilities.  The kernel (``csrc/flash_decode.cu``) splits S into
-chunks and merges them in a second launch; see the source note there.
+the probabilities.  The kernel (``csrc/flash_decode.cu``) is one launch:
+the slots of each (row, kv-head) are split over a thread-block cluster
+whose blocks merge in distributed shared memory; see the source note
+there.  ``launch_geometry`` and ``block_slots`` mirror how the kernel
+deals out the slots.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -20,7 +23,11 @@ launches = LaunchCounter()
 
 NEG = -2.0 ** 30
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_TARGET_BLOCKS = 264          # two blocks per SM of an H100
+# mirrors of csrc/flash_decode.cu (tests/test_torch_kernels.py reads them
+# from the source)
+WARPS = 4                     # kWarps: warps per block
+STAGE_BYTES = 16384           # kStageBytes: K + V bytes of a block's stage
+CLUSTERS = (8, 4, 2, 1)       # blocks per (row, kv-head), largest first
 
 
 def flash_decode_attention_plain(q, k, v, kv_pos, cur_pos, k_scale=None,
@@ -48,21 +55,69 @@ def flash_decode_attention_plain(q, k, v, kv_pos, cur_pos, k_scale=None,
     return out.reshape(b, h, hd)
 
 
-def _lib():
-    fn = load("flash_decode.cu").flash_decode_forward
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 8 + [p]
-        fn.restype = ctypes.c_int
-    return fn
+def _lib() -> ctypes.CDLL:
+    lib = load("flash_decode.cu")
+    if lib.flash_decode_forward.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_decode_forward.argtypes = [p] * 8 + [i] * 8 + [p]
+        lib.flash_decode_forward.restype = i
+        lib.flash_decode_max_clusters.argtypes = [i] * 4 + [
+            ctypes.POINTER(i)]
+        lib.flash_decode_max_clusters.restype = i
+    return lib
 
 
-def num_chunks(b: int, kvh: int, s: int) -> int:
-    """KV chunks per (row, kv-head): enough blocks to fill the card, with
-    at least 32 slots per chunk."""
-    want = -(-_TARGET_BLOCKS // max(b * kvh, 1))
-    return max(1, min(want, -(-s // 32)))
+def slots_per_warp(hd: int, elem_bytes: int) -> int:
+    """Slots of one warp tile (the kernel's ``Geo::SPW``): a block-wide
+    stage of K and V rows is STAGE_BYTES."""
+    return max(1, min(32, STAGE_BYTES // (WARPS * 2 * hd * elem_bytes)))
+
+
+def launch_geometry(rows: int, s: int, spw: int,
+                    capacity: Callable[[int], int]) -> int:
+    """Blocks per (row, kv-head) (the cluster size CL) for ``rows`` =
+    B * KVH rows of S slots: the largest CL that leaves no block without a
+    tile (CL <= block tiles of WARPS * spw slots) and keeps the grid one
+    resident wave (rows <= ``capacity(CL)``, the clusters of CL blocks the
+    card holds at once); 1 where even that does not fit."""
+    tiles = -(-s // (WARPS * spw))
+    for cl in CLUSTERS:
+        if cl <= tiles and rows <= capacity(cl):
+            return cl
+    return 1
+
+
+def block_slots(s: int, spw: int, cl: int) -> List[List[int]]:
+    """The slots each block of a cluster reads, as the kernel deals them:
+    warp tiles of ``spw`` slots, tile u to the cluster's warp u mod
+    (cl * WARPS), warp w of block r being the cluster's warp r * WARPS + w."""
+    nw, nwt = cl * WARPS, -(-s // spw)
+    return [[slot for w in range(WARPS)
+             for u in range(r * WARPS + w, nwt, nw)
+             for slot in range(u * spw, min(s, (u + 1) * spw))]
+            for r in range(cl)]
+
+
+_CAPACITY: Dict[Tuple[int, int, int, int, int], int] = {}
+
+
+def cluster_capacity(dev: torch.device, kind: int, hd: int,
+                     g: int) -> Callable[[int], int]:
+    """Clusters of CL blocks of the kernel's instantiation for (kind, hd,
+    g) that the card holds at once (``cudaOccupancyMaxActiveClusters``,
+    which knows the SM count, the kernel's occupancy and how clusters
+    pack), asked once per device and instantiation."""
+    def cap(cl: int) -> int:
+        key = (dev.index or 0, kind, hd, g, cl)
+        if key not in _CAPACITY:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                rc = _lib().flash_decode_max_clusters(kind, hd, g, cl,
+                                                      ctypes.byref(n))
+            check(rc, "flash_decode_max_clusters")
+            _CAPACITY[key] = n.value
+        return _CAPACITY[key]
+    return cap
 
 
 def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
@@ -105,21 +160,25 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
     for name, t in tensors.items():
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor on {dev}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16 or (
+            scaled and (k_scale.data_ptr() % 4 or v_scale.data_ptr() % 4)):
+        raise ValueError("k and v must start at a 16-byte boundary and "
+                         "their scales at a 4-byte one (the kernel copies "
+                         "them in 16- and 4-byte pieces)")
     if scaled and (k_scale.dtype != torch.bfloat16
                    or v_scale.dtype != torch.bfloat16):
         raise ValueError("int8 cache scales must be bf16")
-    nc = num_chunks(b, kvh, s_len)
-    pm = torch.empty((b, h, nc), dtype=torch.float32, device=dev)
-    pl = torch.empty_like(pm)
-    pacc = torch.empty((b, h, nc, hd), dtype=torch.float32, device=dev)
+    kind = _KV_KIND[k.dtype]
+    cl = launch_geometry(b * kvh, s_len, slots_per_warp(hd, k.element_size()),
+                         cluster_capacity(dev, kind, hd, h // kvh))
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    rc = _lib()(tensors["q"].data_ptr(), k.data_ptr(), v.data_ptr(),
-                k_scale.data_ptr() if scaled else None,
-                v_scale.data_ptr() if scaled else None,
-                tensors["kv_pos"].data_ptr(), tensors["cur_pos"].data_ptr(),
-                pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
-                b, s_len, h, kvh, hd, int(window or 0), nc,
-                _KV_KIND[k.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    rc = _lib().flash_decode_forward(
+        tensors["q"].data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if scaled else None,
+        v_scale.data_ptr() if scaled else None,
+        tensors["kv_pos"].data_ptr(), tensors["cur_pos"].data_ptr(),
+        out.data_ptr(), b, s_len, h, kvh, hd, int(window or 0), cl, kind,
+        torch.cuda.current_stream(dev).cuda_stream)
     check(rc, "flash_decode_forward")
     launches.n += 1
     return out

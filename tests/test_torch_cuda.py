@@ -174,30 +174,93 @@ def test_fused_mma_path_is_deterministic(dev):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("window,filled", [(None, 150), (40, 150),
-                                           (None, 3)])
-def test_flash_decode_kernel_matches_plain(dev, kind, window, filled):
+def _flash_args(dev, B, H, KVH, hd, S, kind, filled, seed):
+    """Flash-decode arguments: slots 0..filled-1 hold positions
+    0..filled-1, the rest are empty; ``filled`` "ring": a ring cache that
+    wrapped, every slot written, positions out of order."""
     from repro_torch.models.kvcache import _kv_quant
-    g = torch.Generator(device=dev).manual_seed(filled)
-    B, H, KVH, hd, S = 3, 12, 2, 64, 200
+    g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H, hd), generator=g, device=dev) / math.sqrt(hd)
     k = torch.randn((B, S, KVH, hd), generator=g, device=dev)
     v = torch.randn((B, S, KVH, hd), generator=g, device=dev)
     ar = torch.arange(S, device=dev, dtype=torch.int32)
-    pos = torch.where(ar < filled, ar, -1)[None].repeat(B, 1)
-    cur = torch.full((B,), filled - 1, dtype=torch.int32, device=dev)
+    if filled == "ring":
+        c = S + S // 3
+        pos = c - (c - ar) % S
+    else:
+        filled = min(filled, S)
+        c = filled - 1
+        pos = torch.where(ar < filled, ar, -1)
+    pos = pos[None].repeat(B, 1).contiguous()
+    cur = torch.full((B,), c, dtype=torch.int32, device=dev)
     ks = vs = None
     if kind == "bf16":
         k, v = k.bfloat16(), v.bfloat16()
     elif kind == "int8":
         k, ks = _kv_quant(k)
         v, vs = _kv_quant(v)
-    got = fd.flash_decode_attention(q, k, v, pos, cur, ks, vs, window=window,
+    return q, k, v, pos, cur, ks, vs
+
+
+# (B, H, KVH, hd, S): the first case is the original one; then batch 1;
+# B * KVH = 160 rows (cluster size 1); S 1003 (no multiple of a tile or
+# of the cluster); S 8192; G 1 and G 8; hd 256 and hd 32 (the reduced
+# configs' width)
+_FLASH_SHAPES = {"b3g6": (3, 12, 2, 64, 200), "b1": (1, 32, 8, 128, 512),
+                 "rows160": (20, 32, 8, 128, 96),
+                 "s1003": (2, 16, 4, 128, 1003),
+                 "s8192": (2, 32, 8, 128, 8192), "g1": (2, 8, 8, 128, 300),
+                 "g8": (2, 64, 8, 128, 300), "hd256": (2, 16, 4, 256, 333),
+                 "hd32": (2, 8, 2, 32, 150)}
+
+
+@pytest.mark.parametrize("shape", list(_FLASH_SHAPES))
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("window,filled", [(None, 150), (40, 150),
+                                           (None, 3), (None, "ring"),
+                                           (70, "ring")])
+def test_flash_decode_kernel_matches_plain(dev, kind, window, filled, shape):
+    """The kernel against its plain version for each cache type, with and
+    without a window, at a prefix of valid slots, at three, and over a
+    wrapped ring's unordered positions."""
+    B, H, KVH, hd, S = _FLASH_SHAPES[shape]
+    seed = filled if isinstance(filled, int) else 11
+    args = _flash_args(dev, B, H, KVH, hd, S, kind, filled, seed)
+    got = fd.flash_decode_attention(*args, window=window,
                                     require_kernel=True)
-    want = fd.flash_decode_attention_plain(q, k, v, pos, cur, ks, vs, window)
+    want = fd.flash_decode_attention_plain(*args, window)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_flash_decode_kernel_is_deterministic(dev, kind):
+    """Two calls on the same inputs give bitwise-equal outputs (the
+    cluster merges in a fixed order), at Mixtral's shape, S 4096."""
+    args = _flash_args(dev, 4, 32, 8, 128, 4096, kind, 4000, 21)
+    got = fd.flash_decode_attention(*args, window=1000, require_kernel=True)
+    again = fd.flash_decode_attention(*args, window=1000,
+                                      require_kernel=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_flash_decode_kernel_replays_in_a_cuda_graph(dev):
+    """One launch, no host sync, only the output allocated: the call can be
+    captured in a CUDA graph (after a warm-up call) and its replay on new
+    cache contents matches an eager call."""
+    args = _flash_args(dev, 4, 32, 8, 128, 512, "f32", 288, 31)
+    fd.flash_decode_attention(*args, require_kernel=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fd.flash_decode_attention(*args, require_kernel=True)
+    args[1].normal_()
+    args[2].normal_()
+    graph.replay()
+    want = fd.flash_decode_attention(*args, require_kernel=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("kind", ["f32", "int8"])

@@ -229,6 +229,61 @@ def test_decode_attention_step_positions_2d():
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [None, 100])
+def test_decode_attention_ring_positions_match_jax(window):
+    """A ring cache that wrapped: every slot written, positions out of
+    order (slot s holds the newest position p <= cur with p % S == s)."""
+    q, k, v, _, _ = _attn_setup(seed=11)
+    s = k.shape[1]
+    c = s + s // 3
+    pos = np.broadcast_to(c - (c - np.arange(s)) % s, (q.shape[0], s))
+    assert not np.all(np.diff(pos[0]) > 0)
+    cur = np.full((q.shape[0],), c, np.int32)
+    _check_decode(q, k, v, np.ascontiguousarray(pos, np.int32), cur,
+                  window=window)
+
+
+def _kernel_flash_constants() -> dict:
+    """kWarps, kStageBytes and kMaxCluster as ``csrc/flash_decode.cu``
+    defines them."""
+    src = (Path(tfd.__file__).parent / "csrc" / "flash_decode.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1))
+            for name in ("kWarps", "kStageBytes", "kMaxCluster")}
+
+
+@pytest.mark.parametrize("b,kvh,s", [(4, 8, 512), (4, 8, 32768),
+                                     (1, 8, 512), (1, 1, 7), (2, 4, 1003),
+                                     (20, 8, 96), (64, 8, 4096),
+                                     (3, 2, 200)])
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_flash_geometry_mirrors_the_kernel(b, kvh, s, sms):
+    """The host's launch geometry against what the kernel assumes: the
+    constants agree with the source; the grid is at most one resident
+    wave (or CL is 1); no block of a cluster is left without slots; every
+    slot is read by exactly one block."""
+    const = _kernel_flash_constants()
+    assert tfd.WARPS == const["kWarps"]
+    assert tfd.STAGE_BYTES == const["kStageBytes"]
+    assert max(tfd.CLUSTERS) == const["kMaxCluster"]
+    def cap(cl):                      # two blocks on each SM
+        return sms * 2 // cl
+
+    for hd, elem in ((128, 4), (128, 2), (128, 1), (256, 4), (32, 1)):
+        spw = tfd.slots_per_warp(hd, elem)
+        assert spw & (spw - 1) == 0 and 1 <= spw <= 32
+        cl = tfd.launch_geometry(b * kvh, s, spw, cap)
+        assert cl in tfd.CLUSTERS
+        assert cl == 1 or b * kvh * cl <= sms * 2
+        blocks = tfd.block_slots(s, spw, cl)
+        assert len(blocks) == cl and all(blocks)
+        assert sorted(x for blk in blocks for x in blk) == list(range(s))
+    # Mixtral at batch 4 on an H100: 32 rows, a cluster of 8 at any S
+    # from the slice's 512; f32 hd 128 takes 4 slots per warp tile
+    assert tfd.slots_per_warp(128, 4) == 4
+    assert tfd.launch_geometry(32, 512, 4, lambda cl: 264 // cl) == 8
+
+
 def test_moe_dispatch_matches_jax_and_counts_rows():
     """Routing, slots, dispatched buffers and gates equal JAX's; ``rows``
     counts each expert's occupied leading slots, and the kernel wrapper
