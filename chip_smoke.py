@@ -13,8 +13,12 @@ Phases:
   3. slice      Mixtral-8x7B at its published widths, depth cut to 2
                 layers, random f32 weights from a seeded generator:
                 compress on the card, ``ServeEngine.generate`` through
-                the kernels, and hold its teacher-forced logits and
-                router choices against the same engine with impl='ref'
+                the kernels with each decode step replayed from a CUDA
+                graph (captured in a warm-up generate of the timed
+                bucket), held to the eager decode loop on the same
+                prompts; both loops' decode profiles and one prefill's;
+                and its teacher-forced logits and router choices against
+                the same engine with impl='ref'
   4. timing     each MoE-path kernel, its plain version and (where one
                 exists) a PyTorch library call computing the same
                 function, beside its bound; the fused kernel at prefill
@@ -25,7 +29,8 @@ Phases:
                 S 512 and at long context (S 4096, 32768) for each cache
                 type, beside its byte bound, its rate and SDPA
   5. dense      Llama-3.2-3B at its published config (28 layers, dense
-                FFNs compressed to E = 1 stacks): the same as phase 3,
+                FFNs compressed to E = 1 stacks): the same as phase 3
+                (graph against eager, the profiles, teacher-forced),
                 then the dense-path kernels timed as in phase 4, with
                 quant_matmul's prefill (tensor-core path) beside both its
                 bounds and w1/w2 on both of its paths at small M
@@ -69,6 +74,10 @@ LOGIT_TOL = 1e-3
 # router choices may differ only where the two probabilities compared
 # are this close (a near-tie flipped by f32 rounding)
 NEAR_TIE = 1e-3
+# log-probs of the graph-replayed decode loop against the eager loop: the
+# same kernels on the same inputs, so |diff| <= 1e-5 (tokens and router
+# trace must be identical)
+GRAPH_LP_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -481,31 +490,24 @@ def slice_phase(dev):
 
     prompts = np.random.default_rng(0).integers(
         2, cfg.vocab_size, (B, P)).astype(np.int32)
-    eng = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="auto",
-                      device=dev)
-    eng.generate(prompts[:, :16], max_new=2)          # warm-up
-    for counter in (qm.launches, qm.fused_mma_launches, qm.qmm_launches,
-                    fd.launches):
-        counter.reset()
-    res = eng.generate(prompts, max_new=NEW, seed=0)
-    launches = {"fused_expert_matmul": qm.launches.n,
-                "flash_decode_attention": fd.launches.n,
-                "quant_matmul": qm.qmm_launches.n}
-    mma_launches = qm.fused_mma_launches.n
+    sv = serve_slice(dev, cfg_q, qparams, prompts, NEW, {
+        "fused_expert_matmul": qm.launches,
+        "flash_decode_attention": fd.launches,
+        "quant_matmul": qm.qmm_launches,
+        "fused_mma": qm.fused_mma_launches})
+    eng, res = sv["engine"], sv["graph"]
+    launches = sv["launches"]
+    mma_launches = launches.pop("fused_mma")
+    sv["eager_launches"].pop("fused_mma")
     log(f"  fused_expert_matmul launches on the tensor-core path "
         f"{mma_launches} (C >= FUSED_MMA_MIN_C {qm.FUSED_MMA_MIN_C}; "
         f"prefill C = B*P = {B * P}), on the CUDA cores "
         f"{launches['fused_expert_matmul'] - mma_launches}")
     if mma_launches <= 0:
         fail("prefill never took the fused kernel's tensor-core path")
-    log(f"  generate: {B} prompts x {P} tokens, {NEW} new tokens, "
-        f"temperature 0: prefill {res.prefill_s * 1e3:.2f} ms, decode "
-        f"{res.decode_s * 1e3:.2f} ms = {res.decode_tokens_per_s:.2f} tok/s"
-        f"; launches {launches}")
     if min(launches["fused_expert_matmul"],
            launches["flash_decode_attention"]) <= 0:
         fail(f"a kernel of the MoE path was never launched: {launches}")
-    profile_decode(eng, prompts, res.decode_s / NEW)
     toks = res.tokens
     check_generation(res, B, NEW, cfg.vocab_size)
     n_moe = len(stacks)
@@ -515,11 +517,82 @@ def slice_phase(dev):
     ref = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="ref",
                       device=dev)
     teacher_forced(eng, ref, prompts, toks, n_moe)
-    return {"launches": launches, "stacks": stacks, "cfg": cfg_q,
+    return {"launches": launches, "eager_launches": sv["eager_launches"],
+            "stacks": stacks, "cfg": cfg_q,
             "prefill_ms": res.prefill_s * 1e3,
             "decode_tok_s": res.decode_tokens_per_s,
+            "eager_tok_s": sv["eager"].decode_tokens_per_s,
             "compress_s": t_comp, "B": B, "P": P, "NEW": NEW,
             "mma_launches": mma_launches}
+
+
+def serve_slice(dev, cfg_q, qparams, prompts, NEW, counters) -> dict:
+    """A slice's main path: ``ServeEngine.generate`` with the decode graph,
+    first a warm-up generate in the timed bucket (its 256-token prompts,
+    2 new tokens: cache 512, where the one capture happens), then the
+    timed one.  ``counters`` (name -> the wrappers' launch counters) are
+    set to 0 before the warm-up and read after the timed run: a wrapper
+    counts where Python launches its kernel, which is in prefill, in the
+    eager warm-up step and at capture, never in a replay.  Then the eager
+    loop (``decode_graph=False``) on the same prompts, its counts read
+    alike: tokens and router trace must equal the graph's, log-probs
+    within GRAPH_LP_TOL.  Both loops' decode profiles, then one prefill's;
+    the eager engine is freed before returning."""
+    from repro_torch.serve.engine import ServeEngine
+    B, P = prompts.shape
+    eng = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="auto",
+                      device=dev)
+    for c in counters.values():
+        c.reset()
+    warm = eng.generate(prompts, max_new=2)
+    log(f"  decode graph capture: {warm.capture_s:.3f} s (eager warm-up "
+        f"step, then capture of one decode step, in the warm-up generate "
+        f"of the timed bucket; graphs {eng.num_graphs}: "
+        f"{sorted(eng.graphs)})")
+    res = eng.generate(prompts, max_new=NEW, seed=0)
+    launches = {n: c.n for n, c in counters.items()}
+    if res.capture_s or eng.num_graphs != 1:
+        fail(f"the timed generate captured again: {eng.num_graphs} graphs")
+    log(f"  generate (graph): {B} prompts x {P} tokens, {NEW} new tokens, "
+        f"temperature 0: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+        f"{res.decode_s * 1e3:.2f} ms = {res.decode_tokens_per_s:.2f} tok/s"
+        f"; wrapper launches over the warm-up and timed generates (a "
+        f"replay launches no wrapper) {launches}")
+    for c in counters.values():
+        c.reset()
+    eager = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="auto",
+                        device=dev, decode_graph=False)
+    eres = eager.generate(prompts, max_new=NEW, seed=0)
+    eager_launches = {n: c.n for n, c in counters.items()}
+    log(f"  generate (eager loop): decode {eres.decode_s * 1e3:.2f} ms = "
+        f"{eres.decode_tokens_per_s:.2f} tok/s; wrapper launches (prefill "
+        f"+ {NEW} steps) {eager_launches}")
+    if not np.array_equal(res.tokens, eres.tokens):
+        fail("graph and eager decode gave different tokens")
+    if (res.router_trace is None) != (eres.router_trace is None) or (
+            res.router_trace is not None
+            and not np.array_equal(res.router_trace, eres.router_trace)):
+        fail("graph and eager decode gave different router traces")
+    lp_diff = float(np.abs(res.logprobs - eres.logprobs).max())
+    if not lp_diff <= GRAPH_LP_TOL:
+        fail(f"graph vs eager log-probs differ by {lp_diff:.3e} "
+             f"(limit {GRAPH_LP_TOL})")
+    log(f"  graph vs eager: tokens and router trace identical, max "
+        f"|dlogprob| {lp_diff:.3e} (limit {GRAPH_LP_TOL})")
+    pg = profile_decode(eng, prompts, res.decode_s / NEW)
+    pe = profile_decode(eager, prompts, eres.decode_s / NEW)
+    for name, r, p in (("graph", res, pg), ("eager", eres, pe)):
+        log(f"  decode {name}: {r.decode_tokens_per_s:.2f} tok/s, host "
+            f"{p['host_ms']:.3f} ms/step, device busy {p['busy_ms']:.3f} "
+            f"ms/step, idle share {p['idle']:.3f}, launches/step "
+            f"{p['launches']}")
+    del eager
+    torch.cuda.empty_cache()
+    profile_prefill(eng, prompts, NEW, res.prefill_s)
+    if eng.num_graphs != 1:
+        fail(f"{eng.num_graphs} graphs for one bucket")
+    return {"engine": eng, "graph": res, "eager": eres,
+            "launches": launches, "eager_launches": eager_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -662,24 +735,18 @@ def kernels_by_name(fn, flush, calls: int = 100) -> dict:
     ``calls`` calls of ``fn`` under the profiler, L2 overwritten before
     each (the overwrite's own kernel left out).  The profiler may miss an
     event now and then, so the count is reported, not assumed."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             flush.bitwise_not_()
             fn()
-        torch.cuda.synchronize()
-    seen = {(ev.name, ev.time_range.start, ev.time_range.end): ev
-            for ev in prof.events() if ev.device_type == DeviceType.CUDA}
     by = {}
-    for (name, _, _), ev in seen.items():
-        if "bitwise_not" in name:
-            continue
-        ms, cnt = by.get(name, (0.0, 0))
-        by[name] = (ms + ev.time_range.elapsed_us() / 1e3, cnt + 1)
+    for name, ms in profiled(run)[0]:
+        if "bitwise_not" not in name:
+            tot, cnt = by.get(name, (0.0, 0))
+            by[name] = (tot + ms, cnt + 1)
     return {n: (ms / cnt, cnt) for n, (ms, cnt) in by.items()}
 
 
@@ -924,31 +991,24 @@ def dense_phase(dev):
 
     prompts = np.random.default_rng(1).integers(
         2, cfg.vocab_size, (B, P)).astype(np.int32)
-    eng = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="auto",
-                      device=dev)
-    eng.generate(prompts[:, :16], max_new=2)          # warm-up
-    for counter in (qm.launches, qm.qmm_launches, fd.launches):
-        counter.reset()
-    res = eng.generate(prompts, max_new=NEW, seed=0)
-    launches = {"quant_matmul": qm.qmm_launches.n,
-                "flash_decode_attention": fd.launches.n,
-                "fused_expert_matmul": qm.launches.n}
-    log(f"  generate: {B} prompts x {P} tokens, {NEW} new tokens, "
-        f"temperature 0: prefill {res.prefill_s * 1e3:.2f} ms, decode "
-        f"{res.decode_s * 1e3:.2f} ms = {res.decode_tokens_per_s:.2f} tok/s"
-        f"; launches {launches}")
+    sv = serve_slice(dev, cfg_q, qparams, prompts, NEW, {
+        "quant_matmul": qm.qmm_launches,
+        "flash_decode_attention": fd.launches,
+        "fused_expert_matmul": qm.launches})
+    eng, res, launches = sv["engine"], sv["graph"], sv["launches"]
     if min(launches["quant_matmul"], launches["flash_decode_attention"]) <= 0:
         fail(f"a kernel of the dense path was never launched: {launches}")
-    profile_decode(eng, prompts, res.decode_s / NEW)
     check_generation(res, B, NEW, cfg.vocab_size)
     if res.router_trace is not None:
         fail("a dense model returned a router trace")
     ref = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="ref",
                       device=dev)
     teacher_forced(eng, ref, prompts, res.tokens, 0)
-    return {"launches": launches, "stacks": stacks, "cfg": cfg_q,
+    return {"launches": launches, "eager_launches": sv["eager_launches"],
+            "stacks": stacks, "cfg": cfg_q,
             "prefill_ms": res.prefill_s * 1e3,
             "decode_tok_s": res.decode_tokens_per_s,
+            "eager_tok_s": sv["eager"].decode_tokens_per_s,
             "compress_s": t_comp, "B": B, "P": P, "NEW": NEW}
 
 
@@ -1048,39 +1108,95 @@ def dense_timing(dev, sl):
     return table
 
 
-def profile_decode(eng, prompts, step_s: float, steps: int = 4) -> None:
-    """Where a decode step's time goes: the device time of every kernel
-    over ``steps`` profiled steps, against the host-clock time of a step
-    with the profiler on and of ``step_s`` (a step of the unprofiled
-    ``generate`` run); the card's idle share is 1 - device / step."""
+def profiled(fn):
+    """Run ``fn`` and synchronise under the profiler.  Returns ([(kernel
+    name, device ms)], host-clock s): each device kernel the profiler saw,
+    once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    logits, caches = eng.prefill(prompts, steps + 1)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            out = eng.step(tok, caches)
-            tok = torch.argmax(out.logits, dim=-1).to(torch.int32)
-            caches = out.caches
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {(ev.name, ev.time_range.start, ev.time_range.end): ev
-               for ev in prof.events() if ev.device_type == DeviceType.CUDA}
-    by_name = {}
-    for ev in kernels.values():
-        by_name[ev.name] = by_name.get(ev.name, 0.0) \
-            + ev.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    wall_ms = wall * 1e3
-    log(f"  decode profile, {steps} steps: device busy {busy / steps:.3f} "
-        f"ms/step; host clock {step_s * 1e3:.3f} ms/step unprofiled (idle "
-        f"share {1 - busy / steps / (step_s * 1e3):.3f}), {wall_ms / steps:.3f}"
-        f" ms/step profiled; kernel launches/step {len(kernels) / steps:.1f}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"    {ms / steps:8.4f} ms/step  {name[:100]}")
+    seen = {(ev.name, ev.time_range.start, ev.time_range.end): ev
+            for ev in prof.events() if ev.device_type == DeviceType.CUDA}
+    return [(name, ev.time_range.elapsed_us() / 1e3)
+            for (name, _, _), ev in seen.items()], wall
+
+
+def log_top(kernels, per: int, what: str) -> None:
+    """The 8 kernel names of ``profiled``'s kernels with the most device
+    time, per ``what``."""
+    ms_by_name = {}
+    for name, ms in kernels:
+        ms_by_name[name] = ms_by_name.get(name, 0.0) + ms
+    for name, ms in sorted(ms_by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {ms / per:8.4f} ms/{what}  {name[:100]}")
+
+
+def profile_decode(eng, prompts, step_s: float, steps: int = 4) -> dict:
+    """Where a decode step's time goes: ``eng.decode`` over ``steps``
+    steps under the profiler (graph replays on a graph engine, eager
+    steps otherwise), the device time of every kernel against the
+    host-clock time of a step with the profiler on and of ``step_s`` (a
+    step of the unprofiled ``generate`` run); the card's idle share is
+    1 - device / step.
+
+    On a graph engine the bucket's graph is also replayed alone: under
+    the profiler (the kernels it holds, captured once and launched by one
+    ``cudaGraphLaunch``) and between CUDA events (its span on the device,
+    gaps between its kernels included).  A step's other kernels are the
+    eager ops between replays (sampling, log-prob, the token and trace
+    copies), so the host launches per step are those ops plus one."""
+    logits, caches = eng.prefill(prompts, steps + 1)
+    torch.cuda.synchronize()
+    kernels, wall = profiled(lambda: eng.decode(logits, caches, steps))
+    busy = sum(ms for _, ms in kernels) / steps
+    kps = len(kernels) / steps
+    out = {"host_ms": step_s * 1e3, "busy_ms": busy,
+           "idle": 1 - busy / (step_s * 1e3), "launches": f"{kps:.1f}"}
+    mode = "eager loop"
+    if eng.decode_graph:
+        mode = "graph replays"
+        g = next(g for g in eng.graphs.values() if g.caches is caches)
+        replayed, _ = profiled(lambda: [g.graph.replay()
+                                        for _ in range(steps)])
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8,
+                            device=eng.device)
+        span = time_ms(g.graph.replay, 10, flush)
+        if not replayed:
+            fail("the profiler saw no kernel of a replayed graph")
+        captured = len(replayed) / steps
+        rbusy = sum(ms for _, ms in replayed) / steps
+        out["launches"] = (f"{kps - captured + 1:.1f} host ({captured:.1f} "
+                           f"captured kernels in 1 graph launch + "
+                           f"{kps - captured:.1f} eager ops)")
+        log(f"  graph alone, {steps} replays: {captured:.1f} kernels, "
+            f"device busy {rbusy:.3f} ms/replay (profiler); span "
+            f"{_fmt(span)} (CUDA events)")
+    log(f"  decode profile ({mode}), {steps} steps: device busy "
+        f"{out['busy_ms']:.3f} ms/step; host clock {step_s * 1e3:.3f} "
+        f"ms/step unprofiled (idle share {out['idle']:.3f}), "
+        f"{wall * 1e3 / steps:.3f} ms/step profiled; kernels on the device "
+        f"per step {kps:.1f}")
+    log_top(kernels, steps, "step")
+    return out
+
+
+def profile_prefill(eng, prompts, max_new: int, prefill_s: float) -> None:
+    """Where a prefill's time goes, as ``profile_decode`` for decode: one
+    ``eng.prefill`` under the profiler, its device time by kernel (top 8)
+    against the host clock of the timed run's unprofiled prefill
+    (``prefill_s``) and of the profiled one."""
+    kernels, wall = profiled(lambda: eng.prefill(prompts, max_new))
+    busy = sum(ms for _, ms in kernels)
+    log(f"  prefill profile, {prompts.shape[0]} x {prompts.shape[1]} tokens:"
+        f" device busy {busy:.3f} ms; host clock {prefill_s * 1e3:.3f} ms "
+        f"unprofiled (idle share {1 - busy / (prefill_s * 1e3):.3f}), "
+        f"{wall * 1e3:.3f} ms profiled; kernels {len(kernels)}")
+    log_top(kernels, 1, "prefill")
 
 
 def kernel_resources(ptxas_log: str, cufilt: Path):
@@ -1150,8 +1266,8 @@ def main() -> int:
     log("== phase 4: timing")
     table = timing_phase(dev, sl)
     table["fused_expert_matmul"]["launches_mma"] = sl["mma_launches"]
-    moe = {k: sl[k] for k in ("launches", "compress_s", "prefill_ms",
-                              "decode_tok_s")}
+    moe = {k: sl[k] for k in ("launches", "eager_launches", "compress_s",
+                              "prefill_ms", "decode_tok_s", "eager_tok_s")}
     del sl
     torch.cuda.empty_cache()
 
@@ -1171,15 +1287,18 @@ def main() -> int:
     for name, (path, replaces) in src.items():
         by_path = {"mixtral": moe["launches"].get(name, 0),
                    "llama": dl["launches"].get(name, 0)}
+        eager_by_path = {"mixtral": moe["eager_launches"].get(name, 0),
+                         "llama": dl["eager_launches"].get(name, 0)}
         kernels.append(dict(name=name, route="cuda", source=path,
                             replaces=replaces,
                             launches=sum(by_path.values()),
                             launches_by_path=by_path,
+                            launches_eager_by_path=eager_by_path,
                             max_abs_err=errs[name], **table[name]))
     for name, r in (("Mixtral slice", moe), ("Llama slice", dl)):
         log(f"  {name}: compression {r['compress_s']:.2f} s, prefill "
             f"{r['prefill_ms']:.2f} ms, decode {r['decode_tok_s']:.2f} "
-            f"tok/s")
+            f"tok/s with the graph, {r['eager_tok_s']:.2f} eager")
     log(f"  total run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -34,6 +34,18 @@ def init_attn_cache(batch: int, length: int, kv_heads: int, head_dim: int,
             "pos": pos}
 
 
+def reset_attn_cache(cache: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Put a cache back to its ``init_attn_cache`` state in place: K, V
+    (and int8 scales) zero, every slot empty (pos -1)."""
+    for name, t in cache.items():
+        if name == "pos":
+            t.fill_(-1)
+        else:
+            t.zero_()
+    return cache
+
+
 def _kv_quant(x: torch.Tensor):
     """(B, S, KV, hd) -> int8 codes + (B, S, KV) bf16 scales."""
     x32 = x.float()

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,11 +30,24 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return x
 
 
+# (head_dim, theta, device) -> the frequencies, computed at the first call
+_ROPE_FREQS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    """(head_dim/2,) f32 frequencies theta^(-2i/head_dim), computed once
+    per (head_dim, theta, device) and then reused: computing them copies
+    ``theta`` from the host, which a captured CUDA graph cannot do, so
+    the first call must come before any capture.  Callers must not write
+    into the returned tensor."""
+    dev = torch.device("cpu" if device is None else device)
+    key = (head_dim, float(theta), dev)
+    if key not in _ROPE_FREQS:
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=dev) / head_dim
+        _ROPE_FREQS[key] = 1.0 / torch.pow(
+            torch.tensor(theta, dtype=torch.float32, device=dev), exps)
+    return _ROPE_FREQS[key]
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float

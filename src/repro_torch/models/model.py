@@ -56,7 +56,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def decode_step(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
                 ctx: ExecContext, *, plan=None) -> LMOutput:
-    """One-token serve step against the KV caches; tokens: (B, 1)."""
+    """One-token serve step against the KV caches; tokens: (B, 1).  The
+    caches are written in place and their ``pos`` (B,) advances by one,
+    so the step reads and writes only fixed buffers (what a captured CUDA
+    graph replays); ``LMOutput.caches`` is the same dict."""
     positions = caches["pos"][:, None]        # (B, 1) absolute position
     x = embed_tokens(params, tokens, cfg)
     x, aux, new_caches, trace, probs = apply_stack(

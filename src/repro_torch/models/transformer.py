@@ -19,7 +19,7 @@ from ..config import ModelConfig
 from .attention import attention, decode_attention
 from .ffn import ffn_apply, ffn_apply_quantized
 from .kvcache import (dequant_scales, init_attn_cache, prefill_attn_cache,
-                      update_attn_cache)
+                      reset_attn_cache, update_attn_cache)
 from .layers import apply_rope, dense_init, embed_init, rms_norm
 from .moe import RoutingInfo, moe_apply
 
@@ -184,6 +184,15 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def reset_caches(caches: Dict) -> Dict:
+    """Put caches back to their ``init_caches`` state in place, so the
+    tensors a captured decode graph reads stay the same ones."""
+    for c in caches["layers"]:
+        reset_attn_cache(c)
+    caches["pos"].zero_()
+    return caches
+
+
 def mask_cache_padding(cfg: ModelConfig, caches: Dict, plen: torch.Tensor
                        ) -> Dict:
     """Invalidate cache entries written by right-padded prefill tokens:
@@ -192,7 +201,7 @@ def mask_cache_padding(cfg: ModelConfig, caches: Dict, plen: torch.Tensor
     lim = plen.to(torch.int32)[:, None]
     for c in caches["layers"]:
         c["pos"].masked_fill_(c["pos"] >= lim, -1)
-    caches["pos"] = plen.to(torch.int32)
+    caches["pos"].copy_(plen)
     return caches
 
 
@@ -245,7 +254,9 @@ def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
 
 def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
                 caches=None, plan=None):
-    """Run every layer.  Returns (x, aux, new_caches, trace, probs).
+    """Run every layer.  Returns (x, aux, caches, trace, probs); with
+    caches, their per-row decode position ``caches["pos"]`` advances in
+    place past the last of ``positions``.
 
     ``trace`` is the stacked (moe_layers, T, k) int32 router top-k ids in
     layer order and ``probs`` the (moe_layers, T, E) router
@@ -267,8 +278,10 @@ def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
             infos.append(info)
     new_caches = None
     if use_cache:
-        new_caches = {"layers": caches["layers"],
-                      "pos": (positions[:, -1] + 1).to(torch.int32)}
+        # in decode ``positions`` is a view of caches["pos"]: advance it
+        # only after every layer has read it
+        caches["pos"].copy_(positions[:, -1] + 1)
+        new_caches = caches
     trace = probs = None
     if ctx.collect_trace and infos:
         trace = torch.stack([i.topk_idx.to(torch.int32) for i in infos])

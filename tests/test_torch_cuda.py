@@ -468,3 +468,145 @@ def test_engine_kernels_match_ref_on_card(dev):
                     kernel_impl="ref").generate(prompts, 6)
     np.testing.assert_array_equal(a.tokens, b.tokens)
     np.testing.assert_allclose(a.logprobs, b.logprobs, rtol=1e-4, atol=1e-4)
+
+
+_ENGINES = {}
+
+
+def _served(kind):
+    """A compressed reduced model on the card: 'moe' (Mixtral-8x7B) or
+    'dense' (Llama-3.2-3B, E = 1 stacks), with prompts of its vocab."""
+    import dataclasses
+    from repro_torch.models.transformer import (compress_dense_params,
+                                                compress_moe_params,
+                                                init_params)
+    from repro_torch.registry import get_config
+    if kind not in _ENGINES:
+        if kind == "moe":
+            cfg = get_config("mixtral-8x7b", reduced=True)
+            params = init_params(cfg, seed=0, dtype=torch.float32)
+            qp, cfg_q, _ = compress_moe_params(params, cfg)
+        else:
+            cfg = get_config("llama3.2-3b", reduced=True)
+            params = init_params(cfg, seed=0, dtype=torch.float32)
+            qp, cfg_q = compress_dense_params(
+                params, cfg, dataclasses.replace(cfg.quant, rank_budget=16))
+        _ENGINES[kind] = (cfg_q, qp)
+    return _ENGINES[kind]
+
+
+def _prompts(cfg, b, n, seed=0):
+    return np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, (b, n)).astype(np.int32)
+
+
+def _assert_same_generation(a, b):
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    if a.router_trace is None:
+        assert b.router_trace is None
+    else:
+        np.testing.assert_array_equal(a.router_trace, b.router_trace)
+    np.testing.assert_allclose(a.logprobs, b.logprobs, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["moe", "dense"])
+def test_graph_generate_matches_eager(dev, kind):
+    """Replaying the captured decode step gives the eager loop's tokens
+    and router trace, and its log-probs within 1e-5."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg, qp = _served(kind)
+    prompts = _prompts(cfg, 3, 9)
+    graph = ServeEngine(cfg, qp, quantized=True)
+    eager = ServeEngine(cfg, qp, quantized=True, decode_graph=False)
+    assert graph.decode_graph and not eager.decode_graph
+    a = graph.generate(prompts, 7)
+    b = eager.generate(prompts, 7)
+    assert graph.num_graphs == 1 and a.capture_s > 0
+    assert eager.num_graphs == 0 and b.capture_s == 0
+    assert (a.router_trace is None) == (kind == "dense")
+    _assert_same_generation(a, b)
+
+
+@pytest.mark.parametrize("kind", ["moe", "dense"])
+def test_one_graph_per_bucket(dev, kind):
+    """Three generates in one (batch, cache) bucket, prompt lengths 5, 7
+    and 9 (all pad to 16; 16 + 4 + 1 -> cache 32), share one capture,
+    the counterpart of the JAX engine's one compile per bucket; another
+    bucket captures once more."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg, qp = _served(kind)
+    eng = ServeEngine(cfg, qp, quantized=True)
+    eager = ServeEngine(cfg, qp, quantized=True, decode_graph=False)
+    for n in (5, 7, 9):
+        prompts = _prompts(cfg, 2, n, seed=n)
+        res = eng.generate(prompts, 4)
+        assert (res.capture_s > 0) == (n == 5)
+        _assert_same_generation(res, eager.generate(prompts, 4))
+    assert eng.num_graphs == 1
+    eng.generate(_prompts(cfg, 2, 20), 4)      # pads to 32 -> cache 64
+    assert eng.num_graphs == 2
+
+
+def test_plan_change_replays_without_capture(dev):
+    """A new (moe_layers, 2) [top_n, rank_cap] plan between generates is
+    a copy into the graph's plan buffer: no new capture, and the replay
+    equals the eager decode steps with the new plan."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg, qp = _served("moe")
+    prompts = _prompts(cfg, 2, 9)
+    n_moe = sum("moe" in lp for lp in qp["layers"])
+    pad = next(lp["moe"]["stacks"]["w1"].pad_rank for lp in qp["layers"]
+               if "moe" in lp)
+    plans = ([[1, pad]] * n_moe, [[2, pad // 2]] * n_moe,
+             [[0, 0]] * n_moe)
+    eng = ServeEngine(cfg, qp, quantized=True)
+    eager = ServeEngine(cfg, qp, quantized=True, decode_graph=False)
+    seen = []
+    for plan in plans:
+        res = eng.generate(prompts, 6, plan=plan)
+        _assert_same_generation(res, eager.generate(prompts, 6, plan=plan))
+        seen.append(res.logprobs)
+    assert eng.num_graphs == 1
+    assert not np.array_equal(seen[0], seen[2])
+
+
+@pytest.mark.parametrize("kind", ["moe", "dense"])
+def test_decode_step_has_no_host_sync(dev, kind):
+    """The warm-up step before a capture raises nothing under
+    ``torch.cuda.set_sync_debug_mode('error')``: the step neither copies
+    from the host nor waits for the card."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg, qp = _served(kind)
+    eng = ServeEngine(cfg, qp, quantized=True)
+    logits, caches = eng.prefill(_prompts(cfg, 2, 9), 4)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        out = eng.step(tok, caches)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.logits).all()
+
+
+def test_failed_capture_raises_without_eager_fallback(dev, monkeypatch):
+    """A decode step that waits on the card fails its warm-up under the
+    sync check: ``generate`` raises, no graph is kept, and the engine
+    stays a graph engine (the next call tries to capture again)."""
+    from repro_torch.models import model as lm
+    from repro_torch.serve.engine import ServeEngine
+    cfg, qp = _served("dense")
+    eng = ServeEngine(cfg, qp, quantized=True)
+    real = lm.decode_step
+
+    def syncing_step(*args, **kwargs):
+        args[1].sum().item()            # tokens: a host read
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(lm, "decode_step", syncing_step)
+    with pytest.raises(RuntimeError):
+        eng.generate(_prompts(cfg, 2, 9), 4)
+    assert eng.num_graphs == 0 and eng.decode_graph
+    assert torch.cuda.get_sync_debug_mode() == 0

@@ -111,3 +111,123 @@ def test_greedy_generate_matches_jax_variants(variant, impl):
 def test_bucket_len_matches_jax(n):
     assert bucket_len(n) == j_bucket_len(n)
     assert bucket_len(n, 16) == j_bucket_len(n, 16)
+
+
+def _reduced_port_params(m):
+    from repro_torch.registry import get_config
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", reduced=True),
+                              force_unroll_plan=True)
+    return cfg, params_from_jax(jax.tree.map(np.asarray, m["jq"]), "cpu")
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+def test_resident_caches_reset_between_generates_in_one_bucket(impl):
+    """One port engine serves a 30-token and then a 17-token prompt batch:
+    both pad to 32 and land in cache bucket 64, so the second prefill runs
+    on the first's resident caches after their reset.  Each run is
+    token-identical, with the same router trace, to the JAX engine and to
+    a fresh port engine, and the reset leaves the caches as
+    ``init_caches`` made them before the prefill writes."""
+    from repro_torch.models.transformer import init_caches
+    rng = np.random.default_rng(9)
+    long_p = rng.integers(2, 512, (2, 30)).astype(np.int32)
+    short_p = rng.integers(2, 512, (2, 17)).astype(np.int32)
+    m = _jax_engine_run(np.random.default_rng(5).integers(2, 512, (2, 11))
+                        .astype(np.int32), 8)
+    if "bucket_runs" not in _CACHE:
+        jeng = JServeEngine(m["jcfg_q"], m["jq"], quantized=True,
+                            kernel_impl="ref")
+        _CACHE["bucket_runs"] = [jeng.generate(p, 8)
+                                 for p in (long_p, short_p)]
+    cfg, params = _reduced_port_params(m)
+    eng = ServeEngine(cfg, params, quantized=True, kernel_impl=impl,
+                      device="cpu")
+    for prompts, want in zip((long_p, short_p), _CACHE["bucket_runs"]):
+        res = eng.generate(prompts, 8)
+        fresh = ServeEngine(cfg, params, quantized=True, kernel_impl=impl,
+                            device="cpu").generate(prompts, 8)
+        for other in (want, fresh):
+            np.testing.assert_array_equal(res.tokens, other.tokens)
+            np.testing.assert_array_equal(res.router_trace,
+                                          other.router_trace)
+        np.testing.assert_allclose(res.logprobs, want.logprobs, rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_array_equal(res.logprobs, fresh.logprobs)
+    assert list(eng._caches) == [(2, 64)]
+    caches = eng._bucket_caches(2, 64)
+    init = init_caches(cfg, 2, 64, torch.float32, device="cpu")
+    for got, want in zip(caches["layers"] + [caches["pos"]],
+                         init["layers"] + [init["pos"]]):
+        if isinstance(got, dict):
+            assert got.keys() == want.keys()
+            for key in got:
+                assert torch.equal(got[key], want[key]), key
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 16])
+def test_reset_attn_cache_restores_init_state(kv_bits):
+    from repro_torch.models.kvcache import (init_attn_cache,
+                                            reset_attn_cache,
+                                            update_attn_cache)
+    cache = init_attn_cache(2, 8, 2, 4, torch.float32, kv_bits=kv_bits,
+                            device="cpu")
+    kv = torch.randn((2, 3, 2, 4), generator=torch.Generator()
+                     .manual_seed(0))
+    update_attn_cache(cache, kv, kv + 1, torch.tensor([[0, 1, 2]] * 2))
+    assert (cache["pos"] >= 0).any() and cache["k"].abs().sum() > 0
+    tensors = {k: t for k, t in cache.items()}
+    want = init_attn_cache(2, 8, 2, 4, torch.float32, kv_bits=kv_bits,
+                           device="cpu")
+    assert reset_attn_cache(cache) is cache
+    for key, t in cache.items():
+        assert t is tensors[key]            # in place
+        assert torch.equal(t, want[key]), key
+
+
+@pytest.mark.parametrize("head_dim,theta", [(128, 500000.0), (64, 1e4)])
+def test_rope_freqs_bit_identical_cached_and_uncached(head_dim, theta):
+    """The frequencies, computed at the first call and reused after, are
+    bit-identical to the formula evaluated afresh on every call."""
+    from repro_torch.models import layers
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    want = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
+    layers._ROPE_FREQS.pop((head_dim, theta, torch.device("cpu")), None)
+    first = layers.rope_freqs(head_dim, theta, "cpu")
+    again = layers.rope_freqs(head_dim, theta, torch.device("cpu"))
+    assert again is first
+    assert torch.equal(first, want) and torch.equal(again, want)
+
+
+def test_decode_graph_on_cpu_engine_raises():
+    from repro_torch.models.transformer import init_params
+    from repro_torch.registry import get_config
+    cfg = get_config("mixtral-8x7b", reduced=True)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="decode_graph=True needs a CUDA"):
+        ServeEngine(cfg, params, device="cpu", decode_graph=True)
+    eng = ServeEngine(cfg, params, device="cpu")
+    assert not eng.decode_graph and eng.num_graphs == 0
+
+
+def test_generate_with_static_plan_matches_no_plan():
+    """A plan holding the static restoration knobs ([top_n_restore,
+    pad_rank] on every MoE layer) gives the no-plan result; a plan with
+    no compensation (top_n 0) changes the log-probs."""
+    m = _jax_engine_run(np.random.default_rng(5).integers(2, 512, (2, 11))
+                        .astype(np.int32), 8)
+    cfg, params = _reduced_port_params(m)
+    prompts = np.random.default_rng(5).integers(2, 512, (2, 11)) \
+        .astype(np.int32)
+    eng = ServeEngine(cfg, params, quantized=True, device="cpu")
+    moe_layers = [lp["moe"] for lp in params["layers"] if "moe" in lp]
+    pad = moe_layers[0]["stacks"]["w1"].pad_rank
+    static = [[cfg.moe.quant.top_n_restore, pad]] * len(moe_layers)
+    base = eng.generate(prompts, 8)
+    with_plan = eng.generate(prompts, 8, plan=static)
+    np.testing.assert_array_equal(with_plan.tokens, base.tokens)
+    np.testing.assert_array_equal(with_plan.router_trace, base.router_trace)
+    np.testing.assert_array_equal(with_plan.logprobs, base.logprobs)
+    off = eng.generate(prompts, 8, plan=[[0, pad]] * len(moe_layers))
+    assert not np.array_equal(off.logprobs, base.logprobs)
