@@ -43,11 +43,9 @@ class ExecContext:
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     specs = []
-    if ((cfg.moe is not None and cfg.moe.num_shared_experts)
-            or cfg.qkv_bias or cfg.post_attn_norm):
+    if cfg.qkv_bias or cfg.post_attn_norm:
         raise NotImplementedError(
-            f"{cfg.name}: shared experts, qkv bias and post-attention "
-            "norms are not ported")
+            f"{cfg.name}: qkv bias and post-attention norms are not ported")
     for i in range(cfg.num_layers):
         mixer = cfg.layer_kind(i)
         moe = cfg.moe is not None and cfg.is_moe_layer(i) and not (
@@ -83,6 +81,12 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
         p["moe"] = {"router": di((d, ne), d, torch.float32),
                     "w1": di((ne, d, fe), d), "w3": di((ne, d, fe), d),
                     "w2": di((ne, fe, d), fe)}
+        if cfg.moe.num_shared_experts:
+            # the shared experts as one gated FFN of their summed width
+            # (the layout of the JAX package's ``_init_moe``)
+            fs = (cfg.moe.d_shared or fe) * cfg.moe.num_shared_experts
+            p["moe"]["shared"] = {"w1": di((d, fs), d), "w3": di((d, fs), d),
+                                  "w2": di((fs, d), fs)}
     else:
         ff = cfg.d_ff
         p["ffn"] = {"w1": di((d, ff), d), "w2": di((ff, d), ff)}
@@ -115,7 +119,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 @torch.no_grad()
 def compress_moe_params(params, cfg: ModelConfig, qcfg=None):
     """Compress every MoE layer's experts for quantized serving: w1/w3/w2
-    become ``CompressedExpertStack``s under ``moe["stacks"]``.
+    become ``CompressedExpertStack``s under ``moe["stacks"]``.  Only the
+    routed experts are compressed, as in the JAX package: shared experts
+    and dense layers stay as they are.
 
     Runs on the device the weights live on.  Returns ``(qparams, cfg_q,
     stacks_by_layer)`` like the JAX package (``cfg_q`` has
@@ -249,7 +255,11 @@ def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
         quantized=ctx.quantized and "stacks" in mp,
         exact_capacity=ctx.exact_capacity, impl=ctx.kernel_impl,
         plan=plan_row, with_aux=ctx.mode == "train")
-    return x + y2.reshape(b, s, d), aux, info
+    y = y2.reshape(b, s, d)
+    if "shared" in mp:
+        # shared experts: every token, uncompressed, on the same input
+        y = y + ffn_apply(h, mp["shared"], cfg.act, True)
+    return x + y, aux, info
 
 
 def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,

@@ -4,12 +4,15 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from .config import ModelConfig
-from .configs import llama3_2_3b, mixtral_8x7b
+from .configs import (deepseek_moe_16b, llama3_2_3b, mixtral_8x7b,
+                      qwen3_moe_30b_a3b)
 from .configs.base import reduce_config
 
 REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "mixtral-8x7b": mixtral_8x7b.config,
     "llama3.2-3b": llama3_2_3b.config,
+    "deepseek-moe-16b": deepseek_moe_16b.config,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.config,
 }
 
 

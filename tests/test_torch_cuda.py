@@ -174,6 +174,56 @@ def test_fused_mma_path_is_deterministic(dev):
     assert torch.equal(got, again)
 
 
+def _dispatch_like(dev, E, T, K, top_k, top_n, seed):
+    """(E, C=T, K) buffers as ``moe.dispatch_tokens`` fills them: T tokens
+    each routed to ``top_k`` distinct random experts, slots taken in token
+    order from 0, the first ``top_n`` choices compensated, unnormalised
+    gates.  Returns (xe, me, ge, rows, the (T, top_k) choices)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    choice = torch.rand((T, E), generator=g, device=dev).argsort(dim=1)
+    choice = choice[:, :top_k]
+    e_idx = choice.reshape(-1)
+    oh = torch.nn.functional.one_hot(e_idx, E).to(torch.int32)
+    slot = (torch.cumsum(oh, dim=0) - oh)[torch.arange(T * top_k,
+                                                       device=dev), e_idx]
+    xe = torch.zeros((E, T, K), device=dev)
+    xe[e_idx, slot] = torch.randn((T * top_k, K), generator=g, device=dev)
+    me = torch.zeros((E, T), device=dev)
+    me[e_idx, slot] = (torch.arange(top_k, device=dev) < top_n).float() \
+        .repeat(T)
+    ge = torch.zeros((E, T), device=dev)
+    ge[e_idx, slot] = torch.rand((T * top_k,), generator=g, device=dev) * 0.3
+    return xe, me, ge, oh.sum(0).to(torch.int32), choice
+
+
+@pytest.mark.parametrize("path", ["simt", "mma"])
+@pytest.mark.parametrize("T", [4, 1000])
+@pytest.mark.parametrize("proj", ["w1", "w2"])
+def test_fused_kernel_deepseek_shapes_match_plain(dev, proj, T, path):
+    """DeepSeek-MoE-16B's expert grid: E 64, d_model 2048 and d_expert
+    1408, top-6 dispatch with top-n 3 at decode (T 4) and a ragged
+    prefill (T 1000), pad_rank 1024 on four experts (the kurtosis
+    allocation of rank budget 64 gives [1024] * 4 + [0] * 60), each main
+    kernel forced at either size, against the plain version in f64."""
+    E, R = 64, 1024
+    K, N = (2048, 1408) if proj == "w1" else (1408, 2048)
+    xe, me, ge, rows, choice = _dispatch_like(dev, E, T, K, 6, 3, seed=T)
+    args = list(_fused_args(dev, E, 1, K, N, R, 2, gated=False, cap=None,
+                            eb=[2] * E, seed=7 + T))
+    ranks = torch.zeros((E,), dtype=torch.int32, device=dev)
+    ranks[choice[0, :4]] = R           # token 0's first choices compensated
+    args[0], args[8], args[12] = xe, me, ranks
+    args[9] = ge if proj == "w2" else None
+    args.append(rows)
+    got = qm._launch_fused(path, *args, bits=2, group_size=64)
+    want = qm.fused_expert_matmul_plain(xe.double(), *args[1:], bits=2,
+                                        group_size=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), want, **FUSED_TOL)
+    live = torch.arange(T, device=dev)[None] < rows[:, None]
+    assert not bool(got[~live].any())       # empty slots are exact zeros
+
+
 def _flash_args(dev, B, H, KVH, hd, S, kind, filled, seed):
     """Flash-decode arguments: slots 0..filled-1 hold positions
     0..filled-1, the rest are empty; ``filled`` "ring": a ring cache that

@@ -44,7 +44,8 @@ def _models():
     return _CACHE
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama3.2-3b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama3.2-3b",
+                                  "deepseek-moe-16b", "qwen3-moe-30b-a3b"])
 def test_config_copy_matches_jax(arch):
     for reduced in (True, False):
         _check_config_copy(j_get_config(arch, reduced=reduced),
