@@ -46,6 +46,18 @@ Phases:
                 teacher-forced against impl='ref' in bf16), then kernel 1
                 at its shapes and flash-decode at its G 1 timed as in
                 phase 4
+  8. serve      ``ServeEngine.serve`` (continuous batching on 4 slots,
+                chunks of 8 decode steps through the decode graph) with
+                byte-metered expert offload (policy 'ours'): on phase 3's
+                Mixtral against ``generate`` of the same prompts, a ragged
+                workload with the graph against the eager loop under a
+                bandwidth budget, and ``score`` against impl='ref'; on
+                phase 7's DeepSeek-MoE 16 ragged requests twice
+                (identical; tokens/s, TTFT, latency, bytes/token, hit
+                rate, host metering ms per chunk, the card's idle share),
+                then the bandwidth controller: static plan, top_n 0, a
+                budget between them (tail bytes/token within [lo, hi] and
+                closer to the budget than the static plan's), repeated
 
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -108,6 +120,10 @@ FLIP_GATE_BF16 = 0.1
 # same kernels on the same inputs, so |diff| <= 1e-5 (tokens and router
 # trace must be identical)
 GRAPH_LP_TOL = 1e-5
+# score (mean NLL over 4 x 256 tokens), kernel engine vs impl='ref' engine,
+# f32: the prefill-shaped kernel 1 sums in another order (the tensor-core
+# hi/lo path), so relative |diff| <= 1e-4
+SCORE_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -351,12 +367,13 @@ def kernel_phase(dev):
                 log(f"  ok  {name}  max|diff| {mx:.3e}")
             del args, got, ref
     # DeepSeek-MoE-16B's expert grid (E 64, d_model 2048, d_expert 1408):
-    # top-6-of-64 dispatch with top-n 3 at decode (T 4), at prefill (T
-    # 1024) and ragged (T 1000), pad_rank 1024 on four experts and none on
-    # the other 60 (the kurtosis allocation of rank budget 64), both
-    # main-kernel paths forced, against the plain version in f64
+    # top-6-of-64 dispatch with top-n 3 at decode (T 4), at serve()'s
+    # batch-1 admissions (T 64..512: padded prompts of 64..512 tokens), at
+    # prefill (T 1024) and ragged (T 1000), pad_rank 1024 on four experts
+    # and none on the other 60 (the kurtosis allocation of rank budget
+    # 64), both main-kernel paths forced, against the plain version in f64
     for K, N in ((2048, 1408), (1408, 2048)):
-        for T in (4, 1000, 1024):
+        for T in (4, 64, 128, 256, 512, 1000, 1024):
             xe, me, ge, rows = dispatch_like(gen, dev, 64, T, K, 6, 3)
             args = list(random_stack_inputs(gen, dev, 64, 1, K, N, 1024, 2,
                                             False, "full", False))
@@ -397,7 +414,11 @@ def kernel_phase(dev):
     # "ring" is a wrapped ring cache, every slot written, positions out of
     # order.  The slices' shapes first (Mixtral G 4, Llama G 3 with a row
     # of no valid slot), then batch 1, 160 rows (a cluster of one), long
-    # S, rings with a window, hd 64 and 256, G 1 and G 8, DeepSeek's G 1
+    # S, rings with a window, hd 64 and 256, G 1 and G 8, DeepSeek's G 1,
+    # then serve()'s (4, 512) and (4, 1024) slot buckets at Mixtral's G 4
+    # in f32 and DeepSeek-MoE's G 1 in bf16, each row at its own position
+    # (a list of fills: one row still empty at S 512, as an unclaimed
+    # slot's)
     flash_cases = [(4, 32, 8, 128, 512, filled, ("f32", "bf16", "int8"),
                     windows) for filled, windows in ((288, (None, 128)),
                                                      (10, (None,)))]
@@ -415,6 +436,9 @@ def kernel_phase(dev):
                     (4, 16, 16, 128, 512, 288, ("f32", "bf16", "int8"),
                      (None,)),
                     (4, 64, 8, 128, 1003, 900, ("bf16",), (None,))]
+    for S, fills in ((512, [0, 17, 289, 512]), (1024, [41, 301, 701, 1001])):
+        flash_cases += [(4, 32, 8, 128, S, fills, ("f32",), (None,)),
+                        (4, 16, 16, 128, S, fills, ("bf16",), (None,))]
     for B, H, KVH, hd, S, filled, kinds, windows in flash_cases:
         for kind in kinds:
             ring = filled == "ring"
@@ -628,6 +652,7 @@ def slice_phase(dev, dtype=torch.float32):
                       device=dev)
     teacher_forced(eng, ref, prompts, toks, n_moe, dtype)
     return {"launches": launches, "eager_launches": sv["eager_launches"],
+            "engine": eng,
             "stacks": stacks, "cfg": cfg_q, "profile": sv["profile"],
             "prefill_ms": res.prefill_s * 1e3,
             "decode_tok_s": res.decode_tokens_per_s,
@@ -789,18 +814,25 @@ def flash_inputs(gen, dev, B, H, KVH, hd, S, filled, kind="f32",
     """Random flash-decode arguments (q, k, v, kv_pos, cur, k_scale,
     v_scale): q pre-scaled by 1/sqrt(hd), a (B, S, KVH, hd) cache of
     ``kind`` (f32, bf16, or int8 with bf16 scales) whose slots 0..filled-1
-    hold positions 0..filled-1 and the rest are empty (-1).  ``ring``: a
-    ring cache that has wrapped, every slot written and its positions out
-    of order (slot s holds the newest position p <= cur with p % S == s,
-    cur = S + S // 3)."""
+    hold positions 0..filled-1 and the rest are empty (-1).  ``filled``
+    may be a list, one count per row: rows at their own positions, as
+    ``serve``'s slots sit (each row's cur its last filled position).
+    ``ring``: a ring cache that has wrapped, every slot written and its
+    positions out of order (slot s holds the newest position p <= cur
+    with p % S == s, cur = S + S // 3)."""
     q = torch.randn((B, H, hd), generator=gen, device=dev) / math.sqrt(hd)
     k = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
     v = torch.randn((B, S, KVH, hd), generator=gen, device=dev)
     ar = torch.arange(S, device=dev, dtype=torch.int32)
-    c = S + S // 3 if ring else max(filled, 1) - 1
-    pos = c - (c - ar) % S if ring else torch.where(ar < filled, ar, -1)
-    pos = pos[None].repeat(B, 1).contiguous()
-    cur = torch.full((B,), c, dtype=torch.int32, device=dev)
+    if isinstance(filled, list):
+        f = torch.tensor(filled, dtype=torch.int32, device=dev)
+        pos = torch.where(ar[None] < f[:, None], ar[None], -1).contiguous()
+        cur = (f.clamp(min=1) - 1).contiguous()
+    else:
+        c = S + S // 3 if ring else max(filled, 1) - 1
+        pos = c - (c - ar) % S if ring else torch.where(ar < filled, ar, -1)
+        pos = pos[None].repeat(B, 1).contiguous()
+        cur = torch.full((B,), c, dtype=torch.int32, device=dev)
     ks = vs = None
     if kind == "bf16":
         k, v = k.bfloat16(), v.bfloat16()
@@ -1234,6 +1266,7 @@ def deepseek_phase(dev):
                       device=dev)
     teacher_forced(eng, ref, prompts, res.tokens, n_moe, dtype)
     return {"launches": launches, "eager_launches": sv["eager_launches"],
+            "engine": eng,
             "stacks": stacks, "cfg": cfg_q, "profile": sv["profile"],
             "prefill_ms": res.prefill_s * 1e3,
             "decode_tok_s": res.decode_tokens_per_s,
@@ -1351,6 +1384,303 @@ def dense_timing(dev, sl):
             f"{layer['splitk']:.4f} ms, tensor cores {layer['mma']:.4f} ms")
     flash_slice_timing(dev, gen, flush, sl)
     return table
+
+
+# ---------------------------------------------------------------------------
+# phase 8: continuous-batching serve() with byte-metered expert offload and
+# the bandwidth controller
+# ---------------------------------------------------------------------------
+
+def serve_line(name: str, st, idle=None) -> None:
+    """Log one ``serve`` run's end-to-end numbers."""
+    rep = st.offload_report
+    tok = max(rep["tokens"], 1)
+    ttft, lat = st.ttft_percentiles(), st.latency_percentiles()
+    log(f"  {name}: {st.generated_tokens} tokens in {st.total_s:.3f} s = "
+        f"{st.tokens_per_s:.2f} tok/s; decode {st.decode_s:.3f} s in "
+        f"{st.chunks} chunks of {st.chunk} steps = "
+        f"{st.generated_tokens / st.decode_s:.2f} tok/s (graph capture "
+        f"{st.capture_s:.3f} s of it); prefill "
+        f"{st.prefill_s:.3f} s ({st.prefill_tokens} padded tokens); TTFT "
+        f"p50/p95 {ttft[50.0] * 1e3:.1f}/{ttft[95.0] * 1e3:.1f} ms; latency"
+        f" p50/p95 {lat[50.0] * 1e3:.1f}/{lat[95.0] * 1e3:.1f} ms")
+    log(f"  {name}: {rep['bytes_per_token']:.1f} wire bytes/token (demand "
+        f"{rep['demand_bytes'] / tok:.1f}, compensator "
+        f"{rep['compensator_bytes'] / tok:.1f}, prefetch "
+        f"{rep['prefetch_bytes'] / tok:.1f} of which wasted "
+        f"{rep['wasted_prefetch_bytes'] / tok:.1f}); hit rate "
+        f"{rep['hit_rate']:.4f}; prefetch accuracy "
+        f"{rep['prefetch_accuracy']:.4f}; metering "
+        f"{st.meter_s * 1e3 / st.chunks:.2f} host ms/chunk ({st.meter_s:.3f}"
+        f" s of {st.total_s:.3f})"
+        + ("" if idle is None else f"; card idle share {idle:.3f}"))
+
+
+def same_serve(a, b, plans: bool = True) -> bool:
+    """Tokens, per-request and aggregate traces, offload reports and
+    per-request bytes identical, and (``plans``) plan traces."""
+    return (all(np.array_equal(x.tokens, y.tokens)
+                and np.array_equal(x.trace, y.trace)
+                and x.offload_bytes == y.offload_bytes
+                for x, y in zip(a.results, b.results))
+            and np.array_equal(a.router_trace, b.router_trace)
+            and a.offload_report == b.offload_report
+            and (not plans or (a.plan_trace is None) == (b.plan_trace is None)
+                 and (a.plan_trace is None
+                      or np.array_equal(a.plan_trace, b.plan_trace))))
+
+
+def device_busy(fn):
+    """``fn()`` under the profiler, device activity only.  Returns (its
+    result, ms the card spent in kernels, copies and sets summed over
+    every one it ran, their number, wall s with the profiler on).  Reads
+    the profiler's raw events: a serve run's ~10^5 kernels are too many
+    for its per-event Python post-processing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    if not evs:
+        fail("the profiler saw no device activity in a serve run")
+    return res, sum(e.duration_ns() for e in evs) / 1e6, len(evs), wall
+
+
+def check_bytes(name: str, st) -> None:
+    rep = st.offload_report
+    billed = sum(r.offload_bytes for r in st.results)
+    if billed != rep["demand_bytes"] + rep["compensator_bytes"]:
+        fail(f"{name}: per-request offload bytes sum to {billed}, demand + "
+             f"compensator {rep['demand_bytes'] + rep['compensator_bytes']}")
+    if not all(np.all(np.isfinite(r.logprobs)) for r in st.results):
+        fail(f"{name}: non-finite log-probs")
+
+
+def tail_bytes_per_token(ctrl) -> float:
+    """Wire bytes/token over the last half of a controlled run's chunks
+    (the controller's per-chunk records)."""
+    h = ctrl.history[len(ctrl.history) // 2:]
+    return (sum(r.bytes_per_token * r.tokens for r in h)
+            / max(sum(r.tokens for r in h), 1))
+
+
+def serve_divergence(eng, prompts, gen, sv) -> int:
+    """Rows where ``serve`` (admissions prefilled at batch 1: kernel 1 on
+    its CUDA cores) and ``generate`` (batch-4 prefill: its tensor cores)
+    part: each row's first differing step must be a near-tie of
+    ``generate``'s f32 state, the token one of its logits (softmax within
+    NEAR_TIE), the routing one of its router (``near_tie``).  Checked
+    teacher-forced on ``generate``'s tokens from a batch-4 prefill.
+    Returns the number of rows that part."""
+    toks = np.stack([r.tokens for r in sv.results])
+    first = {}
+    for r in range(toks.shape[0]):
+        tok_d = np.nonzero(toks[r] != gen.tokens[r])[0]
+        tr_d = np.nonzero((sv.router_trace[:, :, r] !=
+                           gen.router_trace[:, :, r]).any(axis=(1, 2)))[0]
+        steps = [int(x[0]) for x in (tok_d, tr_d) if x.size]
+        if steps:
+            first[r] = min(steps)
+    if not first:
+        return 0
+    logits, caches = eng.prefill(prompts, gen.tokens.shape[1])
+    ref = torch.as_tensor(gen.tokens, device=eng.device)
+    for t in range(max(first.values()) + 1):
+        probs = torch.softmax(logits.float(), dim=-1).cpu()
+        out = eng.step(ref[:, t], caches)
+        for r, ft in first.items():
+            if ft != t:
+                continue
+            a = torch.tensor([int(gen.tokens[r, t])])
+            b = torch.tensor([int(toks[r, t])])
+            if a != b and not near_tie(probs[r], a, b):
+                fail(f"serve vs generate row {r} step {t}: token {int(b)} "
+                     f"against {int(a)} outside a near-tie")
+            for layer in range(gen.router_trace.shape[1]):
+                ga = torch.as_tensor(gen.router_trace[t, layer, r])
+                sb = torch.as_tensor(sv.router_trace[t, layer, r])
+                if a == b and set(ga.tolist()) != set(sb.tolist()) and \
+                        not near_tie(out.router_probs[layer, r].cpu(), ga,
+                                     sb):
+                    fail(f"serve vs generate row {r} step {t} layer {layer}:"
+                         f" router {sb.tolist()} against {ga.tolist()} "
+                         "outside a near-tie")
+        logits = out.logits
+    log(f"  serve vs generate: rows part at a near-tie at steps {first}")
+    return len(first)
+
+
+def serve_mixtral(dev, mx, counters) -> dict:
+    """Phase 3's compressed 2-layer Mixtral-8x7B (f32): ``serve`` against
+    ``generate`` on phase 3's prompts, then a ragged workload served with
+    the decode graph and with the eager loop under a budget, then
+    ``score`` against the impl='ref' engine."""
+    from repro_torch.config import ControlConfig
+    from repro_torch.serve import ServeEngine, synthetic_workload
+    eng, stacks, cfg = mx["engine"], mx["stacks"], mx["cfg"]
+    B, P, NEW = 4, 256, 32
+    prompts = np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (B, P)).astype(np.int32)
+    eng.attach_offload(stacks, policy="ours", cache_capacity=3)
+    gen = eng.generate(prompts, max_new=NEW)
+    graphs = eng.num_graphs
+    eng.attach_offload(stacks, policy="ours", cache_capacity=3)
+    sv = eng.generate_many(list(prompts), max_new=NEW, num_slots=4, chunk=8)
+    check_bytes("mixtral serve", sv)
+    if eng.num_graphs != graphs:
+        fail(f"serve on generate's bucket captured again: {graphs} -> "
+             f"{eng.num_graphs} graphs")
+    parted = serve_divergence(eng, prompts, gen, sv)
+    if not parted:
+        if gen.offload_report != sv.offload_report:
+            fail(f"serve and generate: equal tokens and traces, offload "
+                 f"reports differ: {sv.offload_report} vs "
+                 f"{gen.offload_report}")
+        log(f"  serve vs generate ({B} prompts x {P}, {NEW} new, 4 slots, "
+            "chunk 8, policy 'ours', cache 3 of 8): tokens, traces and "
+            "offload report identical")
+    serve_line("mixtral serve", sv)
+
+    def workload():
+        return synthetic_workload(12, cfg.vocab_size, max_new=24, min_len=16,
+                                  max_len=300, seed=5)
+
+    budget = 0.75 * sv.offload_report["bytes_per_token"]
+    runs = {}
+    for name, graph in (("graph", True), ("eager", False)):
+        e = eng if graph else ServeEngine(
+            cfg, eng.params, quantized=True, kernel_impl="auto", device=dev,
+            decode_graph=False)
+        e.attach_offload(stacks, policy="ours", cache_capacity=3)
+        e.attach_controller(ControlConfig(enabled=True,
+                                          bytes_per_token=budget))
+        before = e.num_graphs
+        for c in counters.values():
+            c.reset()
+        st = e.serve(workload(), num_slots=4, chunk=8)
+        runs[name] = (st, {n: c.n for n, c in counters.items()},
+                      e.num_graphs - before)
+        check_bytes(f"mixtral ragged {name}", st)
+    (g, g_l, g_new), (e_st, e_l, _) = runs["graph"], runs["eager"]
+    if not same_serve(g, e_st):
+        fail("ragged serve: the decode graph and the eager loop differ")
+    if g_new != 1:
+        fail(f"ragged serve captured {g_new} graphs, expected 1")
+    if len({p.tobytes() for p in g.plan_trace}) < 2:
+        fail("ragged serve under a budget never changed the plan")
+    log(f"  ragged serve (12 requests, prompts 16..300, 24 new, 4 slots, "
+        f"chunk 8, budget {budget:.1f} B/token): graph and eager identical "
+        f"(tokens, traces, offload report, plan trace of "
+        f"{len({p.tobytes() for p in g.plan_trace})} distinct plans over "
+        f"{g.chunks} chunks); 1 graph captured across the plan changes; "
+        f"wrapper launches graph {g_l}, eager {e_l}")
+    serve_line("mixtral ragged graph", g)
+    serve_line("mixtral ragged eager", e_st)
+
+    ref = ServeEngine(cfg, eng.params, quantized=True, kernel_impl="ref",
+                      device=dev)
+    s_k, s_r = eng.score(prompts), ref.score(prompts)
+    rel = abs(s_k - s_r) / abs(s_r)
+    if not rel <= SCORE_TOL:
+        fail(f"score {s_k!r} against impl='ref' {s_r!r}: relative "
+             f"{rel:.3e} (limit {SCORE_TOL})")
+    log(f"  score ({B} x {P} tokens, mean NLL): {s_k!r} against impl='ref' "
+        f"{s_r!r}, relative {rel:.3e} (limit {SCORE_TOL})")
+    return {"launches": g_l, "eager_launches": e_l}
+
+
+def serve_deepseek(dev, ds, counters) -> dict:
+    """Phase 7's DeepSeek-MoE-16B (bf16): 16 ragged requests on 4 slots,
+    twice (identical; the second under the profiler for the card's idle
+    share), then the controller: the static plan, a plan pinned to
+    top_n 0, a budget half-way between their tail bytes/token, twice."""
+    from repro_torch.config import ControlConfig
+    from repro_torch.serve import synthetic_workload
+    eng, stacks, cfg = ds["engine"], ds["stacks"], ds["cfg"]
+
+    def run(control=None):
+        eng.attach_offload(stacks, policy="ours", cache_capacity=16)
+        if control is not None:
+            eng.attach_controller(control)
+        torch.cuda.synchronize()
+        return eng.serve(synthetic_workload(16, cfg.vocab_size, max_new=32,
+                                            min_len=64, max_len=512,
+                                            seed=7),
+                         num_slots=4, chunk=8)
+
+    g0 = eng.num_graphs
+    for c in counters.values():
+        c.reset()
+    a1 = run()
+    launches = {n: c.n for n, c in counters.items()}
+    check_bytes("deepseek serve", a1)
+    a2, busy_ms, n_dev, wall = device_busy(run)
+    busy_s = busy_ms / 1e3
+    # the idle share's window is the profiled run's own serve window (no
+    # capture in it: the first run captured)
+    idle = 1 - busy_s / a2.total_s
+    if not same_serve(a1, a2):
+        fail("DeepSeek-MoE serve: two runs of one workload differ")
+    g1 = eng.num_graphs
+    serve_line("deepseek serve", a1)
+    serve_line("deepseek serve profiled", a2, idle)
+    log(f"  deepseek serve: two runs identical (tokens, traces, offload "
+        f"report); card busy {busy_s:.3f} s of the profiled run's "
+        f"{a2.total_s:.3f} s ({n_dev} device ops, {wall:.1f} s with the "
+        f"profiler); graphs {g0} -> {g1}: "
+        f"{sorted(k for k in eng.graphs if k[0] == 4)}; wrapper launches "
+        f"{launches}")
+    if g1 - g0 != 1:
+        fail(f"DeepSeek serve captured {g1 - g0} graphs, expected 1")
+
+    st = run(ControlConfig())
+    hi = tail_bytes_per_token(eng.controller)
+    if not same_serve(a1, st, plans=False):
+        fail("an inactive controller changed DeepSeek-MoE serve")
+    lo_st = run(ControlConfig(enabled=True, bytes_per_token=1.0,
+                              max_top_n=0))
+    lo = tail_bytes_per_token(eng.controller)
+    if lo_st.plan_trace[:, :, 0].any():
+        fail("the pinned top_n 0 plan compensated")
+    g2 = eng.num_graphs
+    budget = (lo + hi) / 2
+    bud = ControlConfig(enabled=True, bytes_per_token=budget)
+    b1 = run(bud)
+    tail = tail_bytes_per_token(eng.controller)
+    b2 = run(bud)
+    if eng.num_graphs != g2 or g2 - g1 != 1:
+        fail(f"the controlled runs captured {eng.num_graphs - g1} graphs, "
+             "expected 1 across every plan")
+    plans = len({p.tobytes() for p in b1.plan_trace})
+    if plans < 2:
+        fail("the budgeted run never changed the plan")
+    if not lo <= tail <= hi:
+        fail(f"budgeted tail {tail:.1f} B/token outside [lo {lo:.1f}, hi "
+             f"{hi:.1f}]")
+    if not abs(tail - budget) < abs(hi - budget):
+        fail(f"budgeted tail {tail:.1f} B/token no closer to the budget "
+             f"{budget:.1f} than the static plan's {hi:.1f}")
+    if not np.array_equal(b1.plan_trace, b2.plan_trace) or \
+            not same_serve(b1, b2):
+        fail("a repeat of the budgeted run gave another plan trace")
+    mean_n = b1.plan_trace[:, :, 0].mean(axis=1)
+    mean_cap = b1.plan_trace[:, :, 1].mean(axis=1)
+    log(f"  controller: tail bytes/token (last half of {b1.chunks} chunks) "
+        f"static {hi:.1f}, top_n 0 {lo:.1f}, budget {budget:.1f} -> "
+        f"{tail:.1f}; {plans} distinct plans; per-chunk mean top_n "
+        f"{[round(float(x), 3) for x in mean_n]}, mean rank cap "
+        f"{[round(float(x), 1) for x in mean_cap]}; final plan "
+        f"{eng.controller.plan().summary()}; repeat identical; graphs "
+        f"{g1} -> {eng.num_graphs} over 4 controlled runs")
+    serve_line("deepseek static plan (inactive controller: the first "
+               "run's work, the plan graph captured)", st)
+    serve_line("deepseek top_n 0", lo_st)
+    serve_line("deepseek budget", b1)
+    return {"launches": launches, "eager_launches": {}}
 
 
 def profiled(fn):
@@ -1528,6 +1858,7 @@ def main() -> int:
     table = timing_phase(dev, sl)
     table["fused_expert_matmul"]["launches_mma"] = sl["mma_launches"]
     runs["mixtral"] = {k: sl[k] for k in keys}
+    mixtral = {k: sl[k] for k in ("engine", "stacks", "cfg")}
     del sl
     torch.cuda.empty_cache()
 
@@ -1557,6 +1888,26 @@ def main() -> int:
     table["fused_expert_matmul"]["deepseek_launches_mma"] = \
         ds["mma_launches"]
     runs["deepseek"] = {k: ds[k] for k in keys}
+
+    log("== phase 8: continuous-batching serve() with offload metering and "
+        "the bandwidth controller")
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import quant_matmul as qm
+    counters = {"fused_expert_matmul": qm.launches,
+                "flash_decode_attention": fd.launches,
+                "quant_matmul": qm.qmm_launches}
+    t8 = time.perf_counter()
+    log("  -- Mixtral-8x7B (phase 3's engine, f32)")
+    served = {"mixtral_serve": serve_mixtral(dev, mixtral, counters)}
+    del mixtral
+    torch.cuda.empty_cache()
+    log("  -- DeepSeek-MoE-16B (phase 7's engine, bf16)")
+    served["deepseek_serve"] = serve_deepseek(dev, ds, counters)
+    for name, sv in served.items():
+        for kname in ("fused_expert_matmul", "flash_decode_attention"):
+            if sv["launches"].get(kname, 0) <= 0:
+                fail(f"{name}: {kname} was never launched: {sv['launches']}")
+    log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
     del ds
     torch.cuda.empty_cache()
 
@@ -1570,10 +1921,12 @@ def main() -> int:
         "src/repro_torch/kernels/csrc/quant_matmul.cu",
         "src/repro/kernels/quant_matmul.py:87")}
     kernels = []
+    paths = {**runs, **served}
     for name, (path, replaces) in src.items():
-        by_path = {run: r["launches"].get(name, 0) for run, r in runs.items()}
+        by_path = {run: r["launches"].get(name, 0)
+                   for run, r in paths.items()}
         eager_by_path = {run: r["eager_launches"].get(name, 0)
-                         for run, r in runs.items()}
+                         for run, r in paths.items() if r["eager_launches"]}
         kernels.append(dict(name=name, route="cuda", source=path,
                             replaces=replaces,
                             launches=sum(by_path.values()),

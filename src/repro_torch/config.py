@@ -1,9 +1,10 @@
 """Frozen-dataclass configuration for the PyTorch port.
 
-A copy of the subset of ``repro/config.py`` that the serving slice reads
-(``QuantConfig``, ``MoEConfig``, ``ModelConfig``, ``ServeConfig`` and
-``RANK_BUCKETS``).  Field names and defaults match the JAX package, so a
-config built here describes the same model as its JAX twin.
+A copy of the subset of ``repro/config.py`` that the serving slices read
+(``QuantConfig``, ``MoEConfig``, ``ModelConfig``, ``ControlConfig``,
+``ServeConfig`` and ``RANK_BUCKETS``).  Field names and defaults match
+the JAX package, so a config built here describes the same model as its
+JAX twin.
 """
 from __future__ import annotations
 
@@ -107,5 +108,55 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ControlConfig:
+    """Runtime bandwidth-budget controller (serve/controller.py).
+
+    Between scheduler decode chunks the controller compares the metered
+    offload wire bytes/token against a budget and adjusts a per-layer
+    ``(top_n, rank_cap)`` restoration plan.  The budget is either
+    ``bytes_per_token`` directly, or derived from a ``tokens_per_s``
+    SLO over ``link_bw`` (bytes/token the link can afford at that rate).
+    Both zero -> no budget: the plan stays pinned at the static
+    ``QuantConfig.top_n_restore`` / full-rank point.
+    """
+    enabled: bool = False
+    bytes_per_token: float = 0.0       # wire-byte budget per decoded token
+    tokens_per_s: float = 0.0          # alternative SLO: link_bw / tok_s
+    link_bw: float = 25e9              # link bandwidth for the SLO form
+    gain: float = 0.5                  # integral step: fraction of the
+                                       # ladder crossed at 100% budget error
+    deadband: float = 0.05             # |relative error| tolerated w/o moves
+    ema: float = 0.5                   # weight of the newest bytes/token
+                                       # sample (per-chunk LRU noise filter)
+    max_step_frac: float = 0.125       # per-update ladder step ceiling
+    min_top_n: int = 0                 # plan floor (0 = pure low-bit)
+    max_top_n: int = -1                # plan ceiling (-1 = router top_k)
+    rank_fracs: Tuple[float, ...] = (0.25, 0.5, 0.75, 1.0)
+    # (the JAX config's budget_scope, for expert-parallel serving, comes
+    # with that serving path)
+
+    @property
+    def target_bytes_per_token(self) -> float:
+        """Resolved budget in bytes/token (0.0 = unconstrained)."""
+        if self.bytes_per_token > 0:
+            return self.bytes_per_token
+        if self.tokens_per_s > 0:
+            return self.link_bw / self.tokens_per_s
+        return 0.0
+
+
+@dataclass(frozen=True)
 class ServeConfig:
+    """The serving knobs the port reads (the JAX ``ServeConfig`` fields
+    of the same names and defaults; paging, prefix caching, streaming
+    and speculative decoding are not ported yet)."""
     temperature: float = 0.0
+    eos_id: int = 1
+    cache_experts: int = 4             # device-resident expert cache per layer
+    # continuous batching: decode-slot pool size and chunk length (the
+    # scheduler refills completed slots between fixed-shape chunks)
+    num_slots: int = 4
+    chunk_steps: int = 8
+    # adaptive top-n restoration under a bandwidth budget; when enabled,
+    # ServeEngine.attach_offload attaches the controller
+    control: ControlConfig = field(default_factory=ControlConfig)

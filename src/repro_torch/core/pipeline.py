@@ -92,6 +92,13 @@ class CompressedExpertStack:
             b += factor_wire_bytes(self.ranks[e], K, N, self.factor_bits)
         return b
 
+    @property
+    def fp16_wire_bytes(self) -> int:
+        """Wire bytes of one expert at 16 bits (the 'fp16' fetch policy's
+        per-expert transfer)."""
+        _, K, N = self.shape
+        return K * N * 2
+
 
 @torch.no_grad()
 def whitened_residual_factors(resid: torch.Tensor, rank: int, pad_rank: int

@@ -46,6 +46,26 @@ def reset_attn_cache(cache: Dict[str, torch.Tensor]
     return cache
 
 
+def claim_slot(cache: Dict[str, torch.Tensor],
+               req_cache: Dict[str, torch.Tensor], slot: int
+               ) -> Dict[str, torch.Tensor]:
+    """Write a batch-1 per-request cache into row ``slot`` of a slotted
+    cache, in place (every plane, ``pos`` included): the tensors a
+    captured decode graph reads stay the same ones."""
+    for name, t in cache.items():
+        t[slot].copy_(req_cache[name][0])
+    return cache
+
+
+def reset_slot(cache: Dict[str, torch.Tensor], slot: int
+               ) -> Dict[str, torch.Tensor]:
+    """Clear row ``slot`` back to the empty-slot state in place: position
+    planes -1 (unwritten, masked by decode attention), the rest zero."""
+    for name, t in cache.items():
+        t[slot].fill_(-1 if name == "pos" else 0)
+    return cache
+
+
 def _kv_quant(x: torch.Tensor):
     """(B, S, KV, hd) -> int8 codes + (B, S, KV) bf16 scales."""
     x32 = x.float()

@@ -18,8 +18,9 @@ from .. import resolve_device
 from ..config import ModelConfig
 from .attention import attention, decode_attention
 from .ffn import ffn_apply, ffn_apply_quantized
-from .kvcache import (dequant_scales, init_attn_cache, prefill_attn_cache,
-                      reset_attn_cache, update_attn_cache)
+from .kvcache import (claim_slot, dequant_scales, init_attn_cache,
+                      prefill_attn_cache, reset_attn_cache, reset_slot,
+                      update_attn_cache)
 from .layers import apply_rope, dense_init, embed_init, rms_norm
 from .moe import RoutingInfo, moe_apply
 
@@ -196,6 +197,26 @@ def reset_caches(caches: Dict) -> Dict:
     for c in caches["layers"]:
         reset_attn_cache(c)
     caches["pos"].zero_()
+    return caches
+
+
+def cache_claim_slot(cfg: ModelConfig, caches: Dict, req_caches: Dict,
+                     slot: int) -> Dict:
+    """Write a batch-1 prefilled cache into batch row ``slot`` of a slotted
+    cache (same cfg and cache length), in place; the slot's absolute
+    position comes along from ``req_caches['pos']``.  Returns ``caches``."""
+    for c, r in zip(caches["layers"], req_caches["layers"]):
+        claim_slot(c, r, slot)
+    caches["pos"][slot].copy_(req_caches["pos"][0])
+    return caches
+
+
+def cache_reset_slot(cfg: ModelConfig, caches: Dict, slot: int) -> Dict:
+    """Clear batch row ``slot`` back to the empty state in place (pos
+    planes -1, position 0).  Returns ``caches``."""
+    for c in caches["layers"]:
+        reset_slot(c, slot)
+    caches["pos"][slot] = 0
     return caches
 
 

@@ -660,3 +660,73 @@ def test_failed_capture_raises_without_eager_fallback(dev, monkeypatch):
         eng.generate(_prompts(cfg, 2, 9), 4)
     assert eng.num_graphs == 0 and eng.decode_graph
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_slot_claim_and_reset_in_place_on_card(dev):
+    """A batch-1 request cache claimed into slot 2 of four on the card:
+    that row equals the request's, the others stay empty, the tensors a
+    decode graph reads are the same ones; a reset empties the row."""
+    from repro_torch.models.transformer import (cache_claim_slot,
+                                                cache_reset_slot,
+                                                init_caches)
+    cfg, _ = _served("moe")
+    caches = init_caches(cfg, 4, 64, torch.float32, device=dev)
+    req = init_caches(cfg, 1, 64, torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for c in req["layers"]:
+        for key, t in c.items():
+            t.copy_(torch.randint(0, 50, t.shape, generator=g, device=dev))
+    req["pos"].fill_(37)
+    ptrs = [t.data_ptr() for c in caches["layers"] for t in c.values()]
+    assert cache_claim_slot(cfg, caches, req, 2) is caches
+    for c, r in zip(caches["layers"], req["layers"]):
+        for key in c:
+            assert torch.equal(c[key][2], r[key][0]), key
+            assert (c[key][[0, 1, 3]] == (-1 if key == "pos" else 0)).all()
+    assert caches["pos"].tolist() == [0, 0, 37, 0]
+    cache_reset_slot(cfg, caches, 2)
+    for c in caches["layers"]:
+        assert (c["pos"] == -1).all() and not c["k"].any()
+    assert caches["pos"].tolist() == [0, 0, 0, 0]
+    assert ptrs == [t.data_ptr() for c in caches["layers"]
+                    for t in c.values()]
+
+
+def test_serve_graph_matches_eager_on_ragged_workload(dev):
+    """``serve`` on a ragged workload (slots at different depths, dead
+    slots stepping on) with offload metering, once with the static plan
+    and once under a budget: the decode graph gives the eager loop's
+    tokens, traces, offload reports and plan traces, and captures one
+    graph per (slots, bucket, plan or none) however often the plan
+    changes."""
+    from repro_torch.config import ControlConfig
+    from repro_torch.serve import ServeEngine, synthetic_workload
+    cfg, qp = _served("moe")
+    stacks = [lp["moe"]["stacks"] for lp in qp["layers"] if "moe" in lp]
+
+    def workload():
+        return synthetic_workload(9, cfg.vocab_size, max_new=10, min_len=5,
+                                  max_len=70, seed=3)
+
+    runs = {}
+    for graph in (True, False):
+        eng = ServeEngine(cfg, qp, quantized=True, decode_graph=graph)
+        eng.attach_offload(stacks, cache_capacity=3)
+        static = eng.serve(workload(), num_slots=4, chunk=4)
+        eng.attach_offload(stacks, cache_capacity=3)
+        eng.attach_controller(ControlConfig(
+            enabled=True,
+            bytes_per_token=0.7 * static.offload_report["bytes_per_token"]))
+        budget = eng.serve(workload(), num_slots=4, chunk=4)
+        runs[graph] = (static, budget, eng.num_graphs)
+    assert runs[True][2] == 2 and runs[False][2] == 0
+    for a, b in zip(runs[True][:2], runs[False][:2]):
+        for ra, rb in zip(a.results, b.results):
+            np.testing.assert_array_equal(ra.tokens, rb.tokens)
+            np.testing.assert_array_equal(ra.trace, rb.trace)
+            assert ra.offload_bytes == rb.offload_bytes
+        np.testing.assert_array_equal(a.router_trace, b.router_trace)
+        assert a.offload_report == b.offload_report
+    np.testing.assert_array_equal(runs[True][1].plan_trace,
+                                  runs[False][1].plan_trace)
+    assert len({p.tobytes() for p in runs[True][1].plan_trace}) > 1

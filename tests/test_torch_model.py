@@ -70,6 +70,31 @@ def _check_config_copy(jcfg, tcfg):
             assert tv == jv, f.name
 
 
+def test_serve_and_control_config_copies_match_jax():
+    """``ControlConfig`` is a copy without ``budget_scope`` (it budgets
+    expert-parallel serving, not ported); ``ServeConfig`` keeps a subset
+    of the JAX fields, each with the JAX default (``control`` included)."""
+    from repro.config import ControlConfig as JControlConfig
+    from repro.config import ServeConfig as JServeConfig
+    from repro_torch.config import ControlConfig, ServeConfig
+    assert [f.name for f in dataclasses.fields(ControlConfig)] == \
+        [f.name for f in dataclasses.fields(JControlConfig)
+         if f.name != "budget_scope"]
+    jdefaults = dataclasses.asdict(JControlConfig())
+    assert jdefaults.pop("budget_scope") == "aggregate"
+    assert dataclasses.asdict(ControlConfig()) == jdefaults
+    cc = dict(enabled=True, bytes_per_token=0.0, tokens_per_s=2e3)
+    assert ControlConfig(**cc).target_bytes_per_token == \
+        JControlConfig(**cc).target_bytes_per_token
+    kept = {f.name for f in dataclasses.fields(ServeConfig)}
+    assert kept == {"temperature", "eos_id", "cache_experts", "num_slots",
+                    "chunk_steps", "control"}
+    port, jax_ = dataclasses.asdict(ServeConfig()), \
+        dataclasses.asdict(JServeConfig())
+    jax_["control"].pop("budget_scope")
+    assert port.items() <= jax_.items()
+
+
 def _run_both(quantized: bool, impl: str, kv_bits: int = 16):
     m = _models()
     jcfg = dataclasses.replace(m["jcfg_q"] if quantized else m["jcfg"],
@@ -146,6 +171,11 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for mod in ("serve/scheduler.py", "serve/controller.py",
+                "offload/__init__.py", "offload/store.py",
+                "offload/prefetch.py", "offload/cache.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
