@@ -8,10 +8,12 @@ Phases:
                 from ``src/repro_torch/kernels/csrc`` with nvcc (sm_90a),
                 one nvcc per source, in parallel
   2. kernels    hold each kernel against its plain PyTorch version on the
-                card, at the shapes of the Mixtral-8x7B, Llama-3.2-3B and
-                DeepSeek-MoE-16B serving paths (kernel 1 at DeepSeek's
-                E 64, top-6 dispatch and pad_rank 1024 on both main-kernel
-                paths, against the plain version in f64)
+                card, at the shapes of the Mixtral-8x7B, Llama-3.2-3B,
+                DeepSeek-MoE-16B and Qwen3-MoE-30B-A3B serving paths
+                (kernel 1 at DeepSeek's E 64, top-6 dispatch and pad_rank
+                1024, and at Qwen3's E 128, top-8, experts at 2..8 bits in
+                one container, on both main-kernel paths, against the
+                plain version in f64; flash-decode at Qwen3's G 8)
   3. slice      Mixtral-8x7B at its published widths, depth cut to 2
                 layers, random f32 weights from a seeded generator:
                 compress on the card, ``ServeEngine.generate`` through
@@ -58,6 +60,21 @@ Phases:
                 then the bandwidth controller: static plan, top_n 0, a
                 budget between them (tail bytes/token within [lo, hi] and
                 closer to the budget than the static plan's), repeated
+  9. entry      Qwen3-MoE-30B-A3B at its published widths, depth cut to
+                QWEN3_LAYERS, f32, through the system's own entry points:
+                ``repro_torch.launch.compress``'s ``run`` (calibrate on 4 x
+                8 x 128 synthetic tokens, allocate per-expert bits and
+                ranks under 0.9 of the uniform INT2 + rank-64 bytes,
+                compress, write the artifact to a temporary directory),
+                then ``repro_torch.launch.serve``'s ``run`` booting it
+                (offload, 16 requests on 4 slots, chunks of 8, prompts of
+                256..512, 32 new, LRU 32 of 128 experts): the loaded
+                stacks equal the in-memory ones bit for bit, serving them
+                in memory gives the same tokens, traces, reports and
+                bytes, teacher-forced logits within LOGIT_TOL of
+                impl='ref'; kernel 1 on the plan's stacks (E 128, top-8,
+                heterogeneous widths and ranks) on both paths in f64;
+                kernel 1 and flash-decode at G 8 (S 512, 1024) timed
 
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -306,6 +323,47 @@ def qmm_kernel_cases(dev, gen):
     return worst
 
 
+def qwen3_fused_cases(dev, gen) -> float:
+    """Kernel 1 at Qwen3-MoE-30B-A3B's expert grid (E 128, d_model 2048,
+    d_expert 768): top-8-of-128 dispatch with top-n 3 at decode (T 4),
+    at serve()'s admissions (T 256, 512: padded prompts) and at prefill
+    (T 1024); experts at 2, 3, 4 and 8 bits in an 8-bit container and at
+    2, 3 and 4 in a 4-bit one (an allocated plan's heterogeneous widths),
+    true ranks 0..256 under pad_rank 256; both main-kernel paths forced,
+    against the plain version in f64.  Returns the largest |diff|."""
+    from repro_torch.kernels import quant_matmul as qm
+    worst = 0.0
+    for K, N in ((2048, 768), (768, 2048)):
+        for T, container in ((4, 8), (256, 4), (512, 8), (1024, 4)):
+            xe, me, ge, rows = dispatch_like(gen, dev, 128, T, K, 8, 3)
+            args = list(random_stack_inputs(gen, dev, 128, 1, K, N, 256,
+                                            container, False, "full", False))
+            widths = [b for b in (2, 3, 4, 8) if b <= container]
+            eb = torch.tensor([widths[e % len(widths)] for e in range(128)],
+                              dtype=torch.int32, device=dev)
+            ranks = torch.tensor([(0, 16, 0, 32, 128, 0, 256)[e % 7]
+                                  for e in range(128)], dtype=torch.int32,
+                                 device=dev)
+            args[0], args[8], args[11], args[12], args[13] = \
+                xe, me, eb, ranks, rows
+            args[9] = ge if K == 768 else None
+            ref = qm.fused_expert_matmul_plain(xe.double(), *args[1:],
+                                               bits=container, group_size=64)
+            for path in ("simt", "mma"):
+                got = qm._launch_fused(path, *args, bits=container,
+                                       group_size=64)
+                name = (f"fused qwen3 path={path} E=128 K={K} N={N} T={T} "
+                        f"top-8 top-n 3 container {container} bits "
+                        f"{widths} ranks 0..256 pad_rank 256 live experts "
+                        f"{int((rows > 0).sum())} gated={args[9] is not None}")
+                mx = allclose_report(name, got, ref, **FUSED_TOL)
+                worst = max(worst, mx)
+                log(f"  ok  {name}  max|diff| {mx:.3e}")
+            del args, got, ref, xe, me, ge
+            torch.cuda.empty_cache()
+    return worst
+
+
 def kernel_phase(dev):
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import quant_matmul as qm
@@ -396,6 +454,8 @@ def kernel_phase(dev):
                 log(f"  ok  {name}  max|diff| {mx:.3e}")
             del args, got, ref, xe, me, ge
             torch.cuda.empty_cache()
+    errs["fused_expert_matmul"] = max(errs["fused_expert_matmul"],
+                                      qwen3_fused_cases(dev, gen))
     # per-channel groups (group_size = K) on one small case
     K, N = shapes[0]
     args = list(random_stack_inputs(gen, dev, E, 4, K, N, 32, 2, True,
@@ -439,6 +499,12 @@ def kernel_phase(dev):
     for S, fills in ((512, [0, 17, 289, 512]), (1024, [41, 301, 701, 1001])):
         flash_cases += [(4, 32, 8, 128, S, fills, ("f32",), (None,)),
                         (4, 16, 16, 128, S, fills, ("bf16",), (None,))]
+    # Qwen3-MoE-30B-A3B's G 8 (32 / 4 heads) at its serve buckets, f32
+    # as phase 9 serves it (and bf16), rows at one and at their own
+    # positions
+    for S, fills in ((512, [0, 17, 289, 512]), (1024, [41, 301, 701, 1001])):
+        flash_cases += [(4, 32, 4, 128, S, filled, ("f32", "bf16"), (None,))
+                        for filled in (288, fills)]
     for B, H, KVH, hd, S, filled, kinds, windows in flash_cases:
         for kind in kinds:
             ring = filled == "ring"
@@ -1683,6 +1749,246 @@ def serve_deepseek(dev, ds, counters) -> dict:
     return {"launches": launches, "eager_launches": {}}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the entry points (compress CLI -> artifact -> serve CLI)
+# ---------------------------------------------------------------------------
+
+QWEN3_ARCH = "qwen3-moe-30b-a3b"
+# the depth cut: 48 layers are ~122 GB of f32 parameters; the allocation
+# tables (an HQQ and a 768 x 768 float64 eigenvalue problem per expert,
+# projection and candidate width) cost ~14 s per layer on an H100 (SXM,
+# 700 W), so 10 layers keep the phase near 210 s
+QWEN3_LAYERS = 10
+
+
+def qwen3_config():
+    import dataclasses
+    from repro_torch.registry import get_config
+    full = get_config(QWEN3_ARCH)
+    cut = dataclasses.replace(full, num_layers=QWEN3_LAYERS)
+    m, q = cut.moe, cut.moe.quant
+    log(f"  config {cut.name}: d_model {cut.d_model}, heads {cut.num_heads}"
+        f"/{cut.num_kv_heads} kv (G {cut.q_per_kv}), head_dim "
+        f"{cut.head_dim}, experts {m.num_experts} top-{m.top_k}, d_expert "
+        f"{m.d_expert}, router_norm_topk {m.router_norm_topk}, vocab "
+        f"{cut.vocab_size}, tied embeddings {cut.tie_embeddings}, bits "
+        f"{q.bits}, group {q.group_size}, rank_budget {q.rank_budget}, "
+        f"top_n {q.top_n_restore}; f32")
+    log(f"  depth cut: {full.num_layers} -> {cut.num_layers} layers "
+        f"(widths as published)")
+    return cut
+
+
+def same_stacks(a, b) -> bool:
+    """Two stacks-by-layer lists with equal meta, tensors and
+    ``dequantize_all``, bit for bit."""
+    fields = ("scale", "zero", "u", "v", "u_scale", "v_scale")
+    for la, lb in zip(a, b):
+        if list(la) != list(lb):
+            return False
+        for proj in la:
+            x, y = la[proj], lb[proj]
+            if (x.bits, x.group_size, tuple(x.shape), x.ranks, x.pad_rank,
+                    x.factor_bits, x.expert_bits) != \
+                    (y.bits, y.group_size, tuple(y.shape), y.ranks,
+                     y.pad_rank, y.factor_bits, y.expert_bits):
+                return False
+            if not all(torch.equal(p, q) for p, q in zip(x.planes, y.planes)):
+                return False
+            if not all(torch.equal(getattr(x, f), getattr(y, f))
+                       for f in fields):
+                return False
+            if not torch.equal(x.dequantize_all(), y.dequantize_all()):
+                return False
+    return len(a) == len(b)
+
+
+def plan_fused_cases(dev, gen, stacks, cfg) -> float:
+    """Kernel 1 on the allocated plan's stacks as compressed (heterogeneous
+    widths in their container, the plan's true ranks, its pad_rank): w1
+    and w2 of the layer with the widest container and of the layer with
+    the largest pad_rank, on top-k dispatch at decode (T 4) and at an
+    admission (T 512), both main-kernel paths forced, against the plain
+    version in f64.  Returns the largest |diff|."""
+    from repro_torch.kernels import quant_matmul as qm
+    worst = 0.0
+    wide = max(range(len(stacks)), key=lambda li: stacks[li]["w1"].bits)
+    ranked = max(range(len(stacks)), key=lambda li: max(
+        st.pad_rank for st in stacks[li].values()))
+    for li, proj in [(li, p) for li in sorted({wide, ranked})
+                     for p in ("w1", "w2")]:
+        st = stacks[li][proj]
+        E, K, N = st.shape
+        eb, ranks = st.meta_tensors()
+        kw = dict(bits=st.bits, group_size=st.group_size)
+        for T in (4, 512):
+            xe, me, ge, rows = dispatch_like(gen, dev, E, T, K,
+                                             cfg.moe.top_k,
+                                             cfg.moe.quant.top_n_restore)
+            args = (xe, st.planes, st.scale, st.zero, st.u, st.u_scale,
+                    st.v, st.v_scale, me, ge if proj == "w2" else None,
+                    None, eb, ranks, rows)
+            ref = qm.fused_expert_matmul_plain(xe.double(), *args[1:], **kw)
+            for path in ("simt", "mma"):
+                got = qm._launch_fused(path, *args, **kw)
+                name = (f"fused qwen3 plan layer {li} {proj} path={path} "
+                        f"E={E} K={K} N={N} T={T} container {st.bits} "
+                        f"pad_rank {st.pad_rank} distinct ranks "
+                        f"{sorted(set(st.ranks))} live experts "
+                        f"{int((rows > 0).sum())}")
+                mx = allclose_report(name, got, ref, **FUSED_TOL)
+                worst = max(worst, mx)
+                log(f"  ok  {name}  max|diff| {mx:.3e}")
+            del xe, me, ge, args, got, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def log_plan(plan, stacks) -> None:
+    ps = plan.summary()
+    log(f"  plan: spent {ps['spent_bytes'] / 2**20:.2f} MiB of "
+        f"{ps['budget_bytes'] / 2**20:.2f} MiB, mean bits "
+        f"{ps['mean_bits']:.4f} {ps['bits_hist']}, mean rank "
+        f"{ps['mean_rank']:.2f}, predicted weighted err "
+        f"{plan.predicted_err:.6f}")
+    from collections import Counter
+    for li in (0, len(stacks) - 1):
+        for proj, st in stacks[li].items():
+            eb = st.expert_bits or (st.bits,) * len(st.ranks)
+            log(f"    layer {li} {proj}: container {st.bits} bits, experts "
+                f"by bits {dict(sorted(Counter(eb).items()))}, by rank "
+                f"{dict(sorted(Counter(st.ranks).items()))}, pad_rank "
+                f"{st.pad_rank}")
+
+
+def entry_phase(dev, counters) -> dict:
+    """Qwen3-MoE-30B-A3B at its published widths, depth cut to
+    QWEN3_LAYERS, f32, through the system's own entry points: the
+    compress CLI's ``run`` (calibrate, allocate under 0.9 of the uniform
+    reference bytes, compress, write the artifact into a temporary
+    directory), then the serve CLI's ``run`` booting that artifact
+    (offload, 16 requests on 4 slots, chunks of 8, prompts of 256..512
+    tokens, 32 new, LRU 32 of 128 experts).  Held: the loaded stacks equal
+    the in-memory ones bit for bit; serving them in memory gives the same
+    tokens, traces, reports and per-request bytes; teacher-forced logits
+    against impl='ref'; kernel 1 on the plan's stacks on both paths in
+    f64.  Then kernel 1 and flash-decode (G 8) timed at these shapes."""
+    import tempfile
+    from repro_torch.launch import compress as compress_cli
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.transformer import (apply_compressed_stacks,
+                                                init_params)
+    from repro_torch.serve import ServeEngine, synthetic_workload
+    cfg = qwen3_config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory(prefix="qwen3_artifact_") as tmp:
+        art = str(Path(tmp) / "artifact")
+        cargs = compress_cli.build_parser().parse_args(
+            ["--arch", QWEN3_ARCH, "--out", art, "--full-config",
+             "--budget-frac", "0.9"])
+        t0 = time.perf_counter()
+        cres = compress_cli.run(cfg, cargs)
+        compress_s = time.perf_counter() - t0
+        sec, man, plan = cres["seconds"], cres["manifest"], cres["plan"]
+        mem_stacks = cres["stacks_by_layer"]
+        disk = (Path(art) / "artifact.npz").stat().st_size
+        log(f"  compress CLI: {compress_s:.2f} s: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in sec.items())
+            + f"; peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; "
+            f"artifact {man['n_tensors']} tensors, {man['bytes'] / 2**20:.1f}"
+            f" MiB of tensors, {disk / 2**20:.1f} MiB on disk; wire bytes "
+            f"{cres['wire_bytes'] / 2**20:.2f} MiB; routing-weighted "
+            f"restoration error {cres['weighted_restoration_err']:.6f}")
+        log_plan(plan, mem_stacks)
+        del cres
+        torch.cuda.empty_cache()
+
+        sargs = serve_cli.build_parser().parse_args(
+            ["--arch", QWEN3_ARCH, "--full-config", "--offload",
+             "--artifact", art, "--requests", "16", "--slots", "4",
+             "--chunk", "8", "--prompt-len", "512", "--max-new", "32",
+             "--cache-experts", "32"])
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        sres = serve_cli.run(cfg, sargs)
+        serve_s = time.perf_counter() - t0
+        launches = {n: c.n for n, c in counters.items()}
+    eng, st_a, loaded = sres["engine"], sres["stats"], sres["stacks_by_layer"]
+    load_s = sres["load_s"]
+    del sres
+    for name in ("fused_expert_matmul", "flash_decode_attention"):
+        if launches.get(name, 0) <= 0:
+            fail(f"qwen3 serve: {name} was never launched: {launches}")
+    check_bytes("qwen3 serve (artifact)", st_a)
+    serve_line("qwen3 serve from the artifact", st_a)
+    log(f"  serve CLI from the artifact: {serve_s:.2f} s in all, the "
+        f"artifact loaded and checked in {load_s:.2f} s; graphs "
+        f"{eng.num_graphs}; busy share {st_a.busy_frac:.3f}, goodput "
+        f"{st_a.goodput_tokens_per_s:.2f} tok/s, KV cache "
+        f"{st_a.cache_hbm_bytes_per_token / 2**10:.1f} KiB/token; wrapper "
+        f"launches {launches}")
+    if not same_stacks(loaded, mem_stacks):
+        fail("the artifact's stacks differ from the in-memory stacks")
+    log("  the loaded stacks equal the in-memory ones bit for bit "
+        "(meta, planes, scales, zeros, factors, dequantize_all)")
+
+    # the same workload served from the in-memory stacks
+    params = init_params(cfg, 0, torch.float32, dev)
+    qparams, cfg_q = apply_compressed_stacks(params, cfg, mem_stacks)
+    del params
+    torch.cuda.empty_cache()
+    twin = ServeEngine(cfg_q, qparams, quantized=True, device=dev)
+    twin.attach_offload(mem_stacks, policy="ours", cache_capacity=32)
+    st_b = twin.serve(synthetic_workload(16, cfg.vocab_size, max_new=32,
+                                         min_len=256, max_len=512, seed=0),
+                      num_slots=4, chunk=8, seed=0)
+    if not same_serve(st_a, st_b):
+        fail("qwen3: serving the artifact differs from serving the "
+             "in-memory stacks")
+    serve_line("qwen3 serve from the in-memory stacks", st_b)
+    log("  artifact serve = in-memory serve (tokens, traces, offload "
+        "report, per-request bytes)")
+    del twin, qparams, mem_stacks
+    torch.cuda.empty_cache()
+
+    # teacher-forced against impl='ref' on the artifact engine
+    B, P, NEW = 4, 256, 32
+    prompts = np.random.default_rng(3).integers(
+        2, cfg.vocab_size, (B, P)).astype(np.int32)
+    res = eng.generate(prompts, max_new=NEW)
+    check_generation(res, B, NEW, cfg.vocab_size)
+    ref = ServeEngine(eng.cfg, eng.params, quantized=True, kernel_impl="ref",
+                      device=dev)
+    teacher_forced(eng, ref, prompts, res.tokens, len(loaded), torch.float32)
+    del ref
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    worst = plan_fused_cases(dev, gen, loaded, cfg)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    sl = {"cfg": eng.cfg, "B": B, "P": P, "NEW": NEW, "stacks": loaded}
+    fused, _ = fused_timing(dev, gen, flush, sl, "qwen3", False)
+    flash = flash_slice_timing(dev, gen, flush, sl, "f32")
+    # serve's (4, 1024) bucket: 512-token prompts and 32 new
+    flash1024 = flash_slice_timing(dev, gen, flush, dict(sl, P=700), "f32")
+    flash.update({f"s1024_{k}": v for k, v in flash1024.items()
+                  if k != "bound_by"})
+    log(f"  qwen3 serve: {st_a.tokens_per_s:.2f} tok/s, "
+        f"{st_a.offload_report['bytes_per_token'] / 1e6:.4f} wire MB/token, "
+        f"hit rate {st_a.offload_report['hit_rate']:.4f}; kernel 1 w1 at "
+        f"decode {fused['ms']:.4f} ms (bound {fused['bound_ms']:.4f}); "
+        f"flash-decode G 8 S 512 {flash['ms']:.4f} ms (bound "
+        f"{flash['bound_ms']:.4f}, SDPA {flash['library_ms']:.4f}), S 1024 "
+        f"{flash['s1024_ms']:.4f} ms (bound {flash['s1024_bound_ms']:.4f}, "
+        f"SDPA {flash['s1024_library_ms']:.4f})")
+    del eng, loaded
+    torch.cuda.empty_cache()
+    return {"launches": launches, "eager_launches": {}, "max_err": worst,
+            "fused": fused, "flash": flash}
+
+
 def profiled(fn):
     """Run ``fn`` and synchronise under the profiler.  Returns ([(kernel
     name, device ms)], host-clock s): each device kernel the profiler saw,
@@ -1910,6 +2216,19 @@ def main() -> int:
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
     del ds
     torch.cuda.empty_cache()
+
+    log("== phase 9: the entry points: compress CLI -> artifact -> serve "
+        "CLI (Qwen3-MoE-30B-A3B)")
+    t9 = time.perf_counter()
+    ep = entry_phase(dev, counters)
+    served["qwen3_entry"] = ep
+    errs["fused_expert_matmul"] = max(errs["fused_expert_matmul"],
+                                      ep["max_err"])
+    table["fused_expert_matmul"].update(
+        {f"qwen3_{k}": v for k, v in ep["fused"].items()})
+    table["flash_decode_attention"].update(
+        {f"qwen3_{k}": v for k, v in ep["flash"].items() if k != "bound_by"})
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
 
     src = {"fused_expert_matmul": (
         "src/repro_torch/kernels/csrc/fused_expert.cu",

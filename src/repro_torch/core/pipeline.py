@@ -1,9 +1,11 @@
 """Offline compression pipeline (paper §3.1): HQQ quantize -> kurtosis ->
 rank allocation -> one truncated SVD per expert -> packed stack.
 
-Port of ``repro/core/pipeline.py`` (the uncalibrated ``moment=None``
-path).  Operates on expert stacks: a (E, K, N) weight tensor holding one
-projection (w1/w2/w3) for all E experts of a layer.
+Port of ``repro/core/pipeline.py``, with the calibrated inputs of the
+offline pipeline (``calib/``): per-expert bits and ranks from a
+``CompressionPlan`` and second moments that whiten the compensator
+factorizations.  Operates on expert stacks: a (E, K, N) weight tensor
+holding one projection (w1/w2/w3) for all E experts of a layer.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ from ..config import QuantConfig
 from .compensator import _sym_quant_cols
 from .hqq import hqq_params
 from .kurtosis import allocate_ranks, kurtosis, uniform_ranks
-from .quantize import (dequantize, factor_wire_bytes, quant_error,
-                       quant_wire_bytes, quantize_with_params, unpack_bits)
+from .quantize import (dequantize_codes, factor_wire_bytes, pack_bits,
+                       quant_wire_bytes, quantize_codes, unpack_bits)
 
 
 @dataclass
@@ -68,13 +70,9 @@ class CompressedExpertStack:
 
     def dequantize_all(self, dtype=torch.float32) -> torch.Tensor:
         """(E, K, N) dequantized weights (no compensation)."""
-        _, K, N = self.shape
-        E = self.scale.shape[0]
-        q = torch.stack([unpack_bits(tuple(p[e] for p in self.planes),
-                                     self.bits) for e in range(E)])
-        g = q.float().reshape(E, K // self.group_size, self.group_size, N)
-        w = (g - self.zero[:, :, None, :]) * self.scale[:, :, None, :]
-        return w.reshape(E, K, N).to(dtype)
+        return dequantize_codes(unpack_bits(self.planes, self.bits),
+                                self.scale, self.zero, self.group_size,
+                                dtype)
 
     def compensation_all(self, dtype=torch.float32) -> torch.Tensor:
         """(E, K, N) dense U V term for every expert."""
@@ -100,12 +98,44 @@ class CompressedExpertStack:
         return K * N * 2
 
 
+def whiten_vector(moment: np.ndarray, eps: float = 1e-6) -> np.ndarray:
+    """(K,) scale-free whitening weights sqrt(m / mean(m) + eps) from a
+    calibrated input second-moment diagonal: the one definition shared by
+    the compensator factorization below and the budget allocator's error
+    model (``calib/allocate.py``)."""
+    m = np.asarray(moment, np.float64).reshape(-1)
+    m = m / max(float(m.mean()), 1e-30)
+    return np.sqrt(m + eps)
+
+
 @torch.no_grad()
-def whitened_residual_factors(resid: torch.Tensor, rank: int, pad_rank: int
+def hqq_quantize_stack(w: torch.Tensor, bits: int, group_size: int,
+                       qcfg: QuantConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """HQQ (scale, zero), each (E, K//G, N), and the uint8 codes (E, K, N)
+    of an (E, K, N) f32 stack at one width: the one quantization route of
+    ``compress_expert_stack`` and of the budget allocator's error model
+    (``calib/allocate.py``)."""
+    s, z = hqq_params(w, bits, group_size, qcfg.hqq_iters, qcfg.hqq_p,
+                      qcfg.hqq_beta, qcfg.hqq_beta_scale)
+    return s, z, quantize_codes(w, s, z, bits, group_size)
+
+
+@torch.no_grad()
+def whitened_residual_factors(resid: torch.Tensor, rank: int, pad_rank: int,
+                              moment: Optional[np.ndarray] = None,
+                              eps: float = 1e-6
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank-``rank`` factors (u (K, R), v (R, N)) of one expert's quant
     residual, reparameterized u = U sqrt(S), v = sqrt(S) V^T and
     zero-padded to ``pad_rank`` columns.
+
+    ``moment`` is the (K,) diagonal of E[x x^T] over the calibration
+    tokens routed to this expert: the residual's rows are whitened by
+    ``whiten_vector(moment)`` before the factorization (truncation in the
+    activation-weighted norm) and u is un-whitened after it, so the
+    stored factors still approximate the residual itself.  ``None`` is
+    the plain weight-space factorization.
 
     Only the top ``pad_rank`` singular triplets are needed, so they come
     from ``eigh`` of the smaller Gram matrix in float64 instead of a full
@@ -118,6 +148,11 @@ def whitened_residual_factors(resid: torch.Tensor, rank: int, pad_rank: int
     if rank <= 0:
         return (torch.zeros((k, pad_rank), dtype=dt, device=resid.device),
                 torch.zeros((pad_rank, n), dtype=dt, device=resid.device))
+    white = None
+    if moment is not None:
+        white = torch.as_tensor(whiten_vector(moment, eps), dtype=dt,
+                                device=resid.device)
+        resid = resid * white[:, None]
     r64 = resid.double()
     small_left = k <= n
     gram = r64 @ r64.T if small_left else r64.T @ r64
@@ -135,6 +170,8 @@ def whitened_residual_factors(resid: torch.Tensor, rank: int, pad_rank: int
     else:                               # vec = right singular vectors
         vv = vec.T * sq[:, None]
         uu = (r64 @ vec) * inv[None, :]
+    if white is not None:
+        uu = uu / white.double()[:, None]
     mask = (torch.arange(pad_rank, device=resid.device) < rank).double()
     return ((uu * mask[None, :]).to(dt), (vv * mask[:, None]).to(dt))
 
@@ -142,14 +179,17 @@ def whitened_residual_factors(resid: torch.Tensor, rank: int, pad_rank: int
 @torch.no_grad()
 def compress_expert_stack(w: torch.Tensor, qcfg: QuantConfig,
                           ranks: Optional[np.ndarray] = None,
-                          bits: Optional[np.ndarray] = None
+                          bits: Optional[np.ndarray] = None,
+                          moments: Optional[np.ndarray] = None
                           ) -> Tuple[CompressedExpertStack, Dict]:
     """Full offline pipeline for one (E, K, N) projection stack.
 
-    ``ranks``/``bits``: optional per-expert allocations; ``bits`` None
-    means uniform ``qcfg.bits``.  Returns the packed stack plus a report
-    dict (kurtosis, ranks, bits, residual norms before/after
-    compensation)."""
+    ``ranks``/``bits``: optional per-expert allocations from a
+    ``CompressionPlan``; ``bits`` None means uniform ``qcfg.bits``.
+    ``moments``: optional (E, K) calibrated input second moments that
+    whiten each expert's factorization (``whitened_residual_factors``).
+    Returns the packed stack plus a report dict (kurtosis, ranks, bits,
+    residual norms before/after compensation)."""
     E, K, N = w.shape
     w32 = w.float()
     if qcfg.group_size <= 0 or qcfg.group_size > K:
@@ -163,21 +203,30 @@ def compress_expert_stack(w: torch.Tensor, qcfg: QuantConfig,
         expert_bits = np.asarray(bits, np.int64).reshape(E)
     store_bits = int(expert_bits.max())
 
-    def _q(we, b):
-        s, z = hqq_params(we, b, qcfg.group_size, qcfg.hqq_iters,
-                          qcfg.hqq_p, qcfg.hqq_beta, qcfg.hqq_beta_scale)
-        return quantize_with_params(we, s, z, b, qcfg.group_size,
-                                    store_bits=store_bits)
-
-    qts = [_q(w32[e], int(expert_bits[e])) for e in range(E)]
+    # HQQ and the codes, batched over the experts of each width
+    G = qcfg.group_size
+    scale = torch.empty((E, K // G, N), dtype=torch.float32, device=w.device)
+    zero = torch.empty_like(scale)
+    codes = torch.empty((E, K, N), dtype=torch.uint8, device=w.device)
+    for b in np.unique(expert_bits):
+        sel = (slice(None) if (expert_bits == b).all() else
+               torch.as_tensor(np.flatnonzero(expert_bits == b),
+                               device=w.device))
+        scale[sel], zero[sel], codes[sel] = hqq_quantize_stack(
+            w32[sel], int(b), G, qcfg)
+    planes = pack_bits(codes, store_bits)
+    resid = w32 - dequantize_codes(codes, scale, zero, G)
+    del codes
+    nw = torch.clamp(torch.linalg.norm(w32.reshape(E, -1), dim=1),
+                     min=1e-12)
+    rel_q = (torch.linalg.norm(resid.reshape(E, -1), dim=1)
+             / nw).cpu().numpy()
 
     max_rank = min(K, N)
     strategy = qcfg.rank_alloc if qcfg.kurtosis_guided else "uniform"
     if ranks is None:
         if strategy == "error":
-            errs = np.array([float(quant_error(w32[e], qts[e]))
-                             for e in range(E)])
-            ranks = allocate_ranks(errs, qcfg.rank_budget, qcfg.rank_buckets,
+            ranks = allocate_ranks(rel_q, qcfg.rank_budget, qcfg.rank_buckets,
                                    max_rank=max_rank)
         elif strategy == "kurtosis":
             ranks = allocate_ranks(kurt, qcfg.rank_budget, qcfg.rank_buckets,
@@ -188,16 +237,13 @@ def compress_expert_stack(w: torch.Tensor, qcfg: QuantConfig,
             ranks = uniform_ranks(E, r, qcfg.rank_buckets)
     ranks = np.minimum(np.asarray(ranks, np.int64), max_rank)
     pad_rank = int(max(int(ranks.max()), 1))
-    planes = tuple(torch.stack([qt.planes[i] for qt in qts])
-                   for i in range(len(qts[0].planes)))
-    scale = torch.stack([qt.scale for qt in qts])
-    zero = torch.stack([qt.zero for qt in qts])
 
     us, vs, uss, vss = [], [], [], []
-    rel_q, rel_c = [], []
+    rel_c = []
     for e in range(E):
-        resid = w32[e] - dequantize(qts[e])
-        uu, vv = whitened_residual_factors(resid, int(ranks[e]), pad_rank)
+        uu, vv = whitened_residual_factors(
+            resid[e], int(ranks[e]), pad_rank,
+            moment=None if moments is None else moments[e])
         if qcfg.factor_bits >= 16:
             qu, qv = uu.to(torch.bfloat16), vv.to(torch.bfloat16)
             su = torch.ones((1, pad_rank), dtype=torch.float32,
@@ -209,10 +255,9 @@ def compress_expert_stack(w: torch.Tensor, qcfg: QuantConfig,
             qv, sv = _sym_quant_cols(vv, qcfg.factor_bits, axis=1)
         us.append(qu); vs.append(qv); uss.append(su); vss.append(sv)
         comp = (qu.float() * su) @ (qv.float() * sv)
-        nw = max(float(torch.linalg.norm(w32[e])), 1e-12)
-        rel_q.append(float(torch.linalg.norm(resid)) / nw)
-        rel_c.append(float(torch.linalg.norm(resid - comp)) / nw)
-        del resid, comp
+        rel_c.append(float(torch.linalg.norm(resid[e] - comp) / nw[e]))
+        del comp
+    del resid
 
     hetero = bool((expert_bits != expert_bits[0]).any()) \
         or int(expert_bits[0]) != store_bits
@@ -226,18 +271,29 @@ def compress_expert_stack(w: torch.Tensor, qcfg: QuantConfig,
         expert_bits=tuple(int(b) for b in expert_bits) if hetero else None)
     report = {"kurtosis": kurt, "ranks": np.asarray(ranks),
               "bits": np.asarray(expert_bits),
-              "rel_err_quant": np.asarray(rel_q),
+              "rel_err_quant": rel_q,
               "rel_err_comp": np.asarray(rel_c)}
     return stack, report
 
 
 def compress_ffn_weights(w1: torch.Tensor, w2: torch.Tensor,
-                         w3: Optional[torch.Tensor], qcfg: QuantConfig):
+                         w3: Optional[torch.Tensor], qcfg: QuantConfig,
+                         allocation=None, stats=None):
     """Compress the three projections of an expert FFN stack; rank
-    allocation runs per projection pool (w1/w2/w3 separately)."""
+    allocation runs per projection pool (w1/w2/w3 separately) unless
+    ``allocation`` (one layer of a ``calib.CompressionPlan``) pins
+    per-expert bits and per-(projection, expert) ranks.  ``stats`` (a
+    ``calib.LayerCalibStats``) whitens the factorizations: w1/w3 by the
+    layer-input moment, w2 by the expert-hidden moment."""
     out, reports = {}, {}
     for name, w in (("w1", w1), ("w2", w2), ("w3", w3)):
         if w is None:
             continue
-        out[name], reports[name] = compress_expert_stack(w, qcfg)
+        kw = {}
+        if allocation is not None:
+            kw["bits"] = allocation.bits
+            kw["ranks"] = allocation.ranks[name]
+        if stats is not None:
+            kw["moments"] = stats.moment_for(name)
+        out[name], reports[name] = compress_expert_stack(w, qcfg, **kw)
     return out, reports

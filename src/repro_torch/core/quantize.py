@@ -13,7 +13,7 @@ and ``dequant = (q - z) * s`` with per-group (G along K) scale/zero.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -62,36 +62,38 @@ def factor_wire_bytes(rank: int, m: int, n: int, factor_bits: int) -> int:
 
 def pack_plane(vals: torch.Tensor, p: int, block: int = PACK_BLOCK
                ) -> torch.Tensor:
-    """Pack (K, N) uint8 p-bit values into (K//(8//p), N) bytes,
+    """Pack (..., K, N) uint8 p-bit values into (..., K//(8//p), N) bytes,
     block-local: within each K-block, chunk j goes to bit offset j*p."""
     c = 8 // p
-    k, n = vals.shape[0], vals.shape[1]
+    *lead, k, n = vals.shape
     if k % block or block % c:
         raise ValueError(f"K={k} must be a multiple of the pack block "
                          f"{block} (c={c})")
-    v = vals.reshape(k // block, c, block // c, n).to(torch.uint8)
-    out = torch.zeros((k // block, block // c, n), dtype=torch.uint8,
+    v = vals.reshape(*lead, k // block, c, block // c, n).to(torch.uint8)
+    out = torch.zeros((*lead, k // block, block // c, n), dtype=torch.uint8,
                       device=vals.device)
     for j in range(c):
-        out |= v[:, j] << (j * p)
-    return out.reshape(k // c, n)
+        out |= v[..., j, :, :] << (j * p)
+    return out.reshape(*lead, k // c, n)
 
 
 def unpack_plane(packed: torch.Tensor, p: int, block: int = PACK_BLOCK
                  ) -> torch.Tensor:
-    """Inverse of :func:`pack_plane`: (K//c, N) bytes -> (K, N) uint8."""
+    """Inverse of :func:`pack_plane`: (..., K//c, N) bytes -> (..., K, N)
+    uint8."""
     c = 8 // p
-    kc, n = packed.shape
+    *lead, kc, n = packed.shape
     k = kc * c
     mask = (1 << p) - 1
-    pk = packed.reshape(k // block, block // c, n)
+    pk = packed.reshape(*lead, k // block, block // c, n)
     chunks = [(pk >> (j * p)) & mask for j in range(c)]
-    return torch.stack(chunks, dim=1).reshape(k, n)
+    return torch.stack(chunks, dim=-3).reshape(*lead, k, n)
 
 
 def pack_bits(q: torch.Tensor, bits: int, block: int = PACK_BLOCK
               ) -> Tuple[torch.Tensor, ...]:
-    """Split b-bit codes into power-of-two planes and pack each."""
+    """Split b-bit codes (..., K, N) into power-of-two planes and pack
+    each."""
     q = q.to(torch.uint8)
     return tuple(pack_plane((q >> off) & ((1 << p) - 1), p, block)
                  for p, off in PLANES[bits])
@@ -99,7 +101,7 @@ def pack_bits(q: torch.Tensor, bits: int, block: int = PACK_BLOCK
 
 def unpack_bits(planes: Tuple[torch.Tensor, ...], bits: int,
                 block: int = PACK_BLOCK) -> torch.Tensor:
-    """Inverse of :func:`pack_bits` -> uint8 codes (K, N)."""
+    """Inverse of :func:`pack_bits` -> uint8 codes (..., K, N)."""
     out = None
     for (p, off), plane in zip(PLANES[bits], planes):
         sub = unpack_plane(plane, p, block) << off
@@ -128,43 +130,22 @@ class QuantizedTensor:
 
 def quantize_codes(w: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
                    bits: int, group_size: int) -> torch.Tensor:
-    """Unpacked uint8 codes in [0, 2^bits) for given scale/zero."""
-    k, n = w.shape
+    """Unpacked uint8 codes in [0, 2^bits) for given scale/zero.  ``w``
+    is (..., K, N), ``scale``/``zero`` (..., K//G, N): one matrix or a
+    stack of experts."""
+    *lead, k, n = w.shape
     qmax = (1 << bits) - 1
-    g = w.float().reshape(k // group_size, group_size, n)
-    q = torch.clamp(torch.round(g / scale[:, None, :] + zero[:, None, :]),
-                    0, qmax)
-    return q.reshape(k, n).to(torch.uint8)
+    g = w.float().reshape(*lead, k // group_size, group_size, n)
+    q = torch.clamp(torch.round(g / scale[..., None, :]
+                                + zero[..., None, :]), 0, qmax)
+    return q.reshape(*lead, k, n).to(torch.uint8)
 
 
-def quantize_with_params(w: torch.Tensor, scale: torch.Tensor,
-                         zero: torch.Tensor, bits: int, group_size: int,
-                         store_bits: Optional[int] = None
-                         ) -> QuantizedTensor:
-    """Quantize with externally-optimized (HQQ) scale/zero.
-
-    ``store_bits`` >= bits packs the codes into a wider bit-plane
-    container (heterogeneous per-expert precision shares one stacked
-    layout; the upper planes of a narrower expert are zero)."""
-    k, n = w.shape
-    q = quantize_codes(w, scale, zero, bits, group_size)
-    sb = bits if store_bits is None else store_bits
-    if sb < bits:
-        raise ValueError(f"store_bits={sb} < bits={bits}")
-    return QuantizedTensor(pack_bits(q, sb), scale, zero, sb, group_size,
-                           (k, n))
-
-
-def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
-    k, n = qt.shape
-    q = unpack_bits(qt.planes, qt.bits).float()
-    g = q.reshape(k // qt.group_size, qt.group_size, n)
-    w = (g - qt.zero[:, None, :]) * qt.scale[:, None, :]
-    return w.reshape(k, n).to(dtype)
-
-
-def quant_error(w: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
-    """Relative Frobenius residual ||W - Q^-1(Q(W))||_F / ||W||_F."""
-    e = w.float() - dequantize(qt)
-    return torch.linalg.norm(e) / torch.clamp(torch.linalg.norm(w.float()),
-                                              min=1e-12)
+def dequantize_codes(q: torch.Tensor, scale: torch.Tensor,
+                     zero: torch.Tensor, group_size: int,
+                     dtype=torch.float32) -> torch.Tensor:
+    """``(q - z) * s`` per (K-group, column) of (..., K, N) codes."""
+    *lead, k, n = q.shape
+    g = q.float().reshape(*lead, k // group_size, group_size, n)
+    w = (g - zero[..., None, :]) * scale[..., None, :]
+    return w.reshape(*lead, k, n).to(dtype)

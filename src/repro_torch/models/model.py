@@ -21,6 +21,8 @@ class LMOutput(NamedTuple):
     trace: Optional[torch.Tensor] = None
     # (moe_layers, T, E) router probabilities when ctx.collect_trace
     router_probs: Optional[torch.Tensor] = None
+    # (moe_layers, T, d) normed MoE-FFN inputs when ctx.collect_moe_inputs
+    moe_inputs: Optional[torch.Tensor] = None
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
@@ -48,10 +50,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
     x = embed_tokens(params, tokens, cfg)
-    x, aux, new_caches, trace, probs = apply_stack(
+    x, aux, new_caches, trace, probs, moe_ins = apply_stack(
         params, x, cfg, ctx, positions, caches=caches, plan=plan)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return LMOutput(lm_head(params, x, cfg), aux, new_caches, trace, probs)
+    return LMOutput(lm_head(params, x, cfg), aux, new_caches, trace, probs,
+                    moe_ins)
 
 
 def decode_step(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
@@ -62,7 +65,8 @@ def decode_step(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
     graph replays); ``LMOutput.caches`` is the same dict."""
     positions = caches["pos"][:, None]        # (B, 1) absolute position
     x = embed_tokens(params, tokens, cfg)
-    x, aux, new_caches, trace, probs = apply_stack(
+    x, aux, new_caches, trace, probs, moe_ins = apply_stack(
         params, x, cfg, ctx, positions, caches=caches, plan=plan)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return LMOutput(lm_head(params, x, cfg), aux, new_caches, trace, probs)
+    return LMOutput(lm_head(params, x, cfg), aux, new_caches, trace, probs,
+                    moe_ins)

@@ -40,6 +40,9 @@ class ExecContext:
     kernel_impl: Optional[str] = None
     # return per-MoE-layer routing (top-k ids and router probs)
     collect_trace: bool = False
+    # return per-MoE-layer normed FFN inputs (T, d): the offline
+    # calibration pass (calib/stats.py) accumulates its statistics on them
+    collect_moe_inputs: bool = False
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -118,11 +121,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 
 
 @torch.no_grad()
-def compress_moe_params(params, cfg: ModelConfig, qcfg=None):
+def compress_moe_params(params, cfg: ModelConfig, qcfg=None, plan=None,
+                        stats=None):
     """Compress every MoE layer's experts for quantized serving: w1/w3/w2
     become ``CompressedExpertStack``s under ``moe["stacks"]``.  Only the
     routed experts are compressed, as in the JAX package: shared experts
     and dense layers stay as they are.
+
+    ``plan`` (a ``calib.CompressionPlan``) pins per-expert bits and
+    per-projection ranks per MoE layer; ``stats`` (per-MoE-layer
+    ``calib.LayerCalibStats``) whitens the compensator factorizations by
+    the calibrated second moments.  Both None keeps the kurtosis-guided
+    uniform-bit path.
 
     Runs on the device the weights live on.  Returns ``(qparams, cfg_q,
     stacks_by_layer)`` like the JAX package (``cfg_q`` has
@@ -135,9 +145,12 @@ def compress_moe_params(params, cfg: ModelConfig, qcfg=None):
         if "moe" not in lp:
             layers.append(lp)
             continue
+        li = len(stacks_by_layer)
         mp = dict(lp["moe"])
-        stacks, _ = compress_ffn_weights(mp.pop("w1"), mp.pop("w2"),
-                                         mp.pop("w3"), qcfg)
+        stacks, _ = compress_ffn_weights(
+            mp.pop("w1"), mp.pop("w2"), mp.pop("w3"), qcfg,
+            allocation=None if plan is None else plan.layers[li],
+            stats=None if stats is None else stats[li])
         stacks_by_layer.append(stacks)
         mp["stacks"] = stacks
         lp["moe"] = mp
@@ -146,6 +159,31 @@ def compress_moe_params(params, cfg: ModelConfig, qcfg=None):
     qparams["layers"] = layers
     return (qparams, dataclasses.replace(cfg, force_unroll_plan=True),
             stacks_by_layer)
+
+
+def apply_compressed_stacks(params, cfg: ModelConfig, stacks_by_layer):
+    """Swap precompressed stacks dicts into the MoE layers of a fresh
+    parameter dict: the artifact boot path (``launch/serve.py
+    --artifact``), no HQQ and no factorization.  Returns ``(qparams,
+    cfg_q)`` in the layout ``compress_moe_params`` produces, so serving
+    from an artifact equals serving from in-memory compression."""
+    n_moe = sum(1 for s in layer_specs(cfg) if s.ffn == "moe")
+    if n_moe != len(stacks_by_layer):
+        raise ValueError(f"artifact has {len(stacks_by_layer)} MoE layers; "
+                         f"config {cfg.name} has {n_moe}")
+    layers, li = [], 0
+    for lp in params["layers"]:
+        lp = dict(lp)
+        if "moe" in lp:
+            mp = {k: v for k, v in lp["moe"].items()
+                  if k not in ("w1", "w2", "w3")}
+            mp["stacks"] = stacks_by_layer[li]
+            lp["moe"] = mp
+            li += 1
+        layers.append(lp)
+    qparams = dict(params)
+    qparams["layers"] = layers
+    return qparams, dataclasses.replace(cfg, force_unroll_plan=True)
 
 
 @torch.no_grad()
@@ -256,8 +294,10 @@ def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, positions, cache):
 
 def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
                 positions, cache, plan_row=None):
-    """One transformer layer.  Returns (x, aux, routing info); a dense
-    layer gives no aux and no routing info."""
+    """One transformer layer.  Returns (x, aux, routing info, MoE input);
+    a dense layer gives no aux, no routing info and no MoE input.  The
+    MoE input is the (T, d) f32 normed FFN input when
+    ``ctx.collect_moe_inputs`` is set, else None."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     x = x + _attn_layer(h, p["attn"], cfg, ctx, positions, cache)
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
@@ -268,7 +308,7 @@ def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
                                     impl=ctx.kernel_impl)
         else:
             y = ffn_apply(h, fp, cfg.act, cfg.gated_ffn)
-        return x + y, {}, None
+        return x + y, {}, None, None
     mp = p["moe"]
     b, s, d = h.shape
     y2, aux, info = moe_apply(
@@ -277,28 +317,32 @@ def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
         exact_capacity=ctx.exact_capacity, impl=ctx.kernel_impl,
         plan=plan_row, with_aux=ctx.mode == "train")
     y = y2.reshape(b, s, d)
+    moe_in = h.reshape(-1, d).float() if ctx.collect_moe_inputs else None
     if "shared" in mp:
         # shared experts: every token, uncompressed, on the same input
         y = y + ffn_apply(h, mp["shared"], cfg.act, True)
-    return x + y, aux, info
+    return x + y, aux, info, moe_in
 
 
 def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
                 caches=None, plan=None):
-    """Run every layer.  Returns (x, aux, caches, trace, probs); with
-    caches, their per-row decode position ``caches["pos"]`` advances in
-    place past the last of ``positions``.
+    """Run every layer.  Returns (x, aux, caches, trace, probs,
+    moe_inputs); with caches, their per-row decode position
+    ``caches["pos"]`` advances in place past the last of ``positions``.
 
     ``trace`` is the stacked (moe_layers, T, k) int32 router top-k ids in
     layer order and ``probs`` the (moe_layers, T, E) router
     probabilities, both when ``ctx.collect_trace`` is set and the model
-    has an MoE layer (else None).
+    has an MoE layer (else None).  ``moe_inputs`` is the stacked
+    (moe_layers, T, d) f32 normed MoE-FFN inputs in the same order when
+    ``ctx.collect_moe_inputs`` is set (the calibration pass).
     ``plan``: optional (moe_layers, 2) [top_n, rank_cap] rows."""
     use_cache = caches is not None and ctx.mode in ("prefill", "step")
     aux = {"load_balance": 0.0, "router_z": 0.0}
     infos: List[RoutingInfo] = []
+    moe_ins: List[torch.Tensor] = []
     for li, (lp, spec) in enumerate(zip(params["layers"], layer_specs(cfg))):
-        x, a, info = apply_layer(
+        x, a, info, moe_in = apply_layer(
             x, lp, spec, cfg, ctx, positions,
             caches["layers"][li] if use_cache else None,
             plan_row=None if plan is None or spec.ffn != "moe"
@@ -307,6 +351,8 @@ def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
             aux[key] = aux[key] + val    # empty outside training
         if info is not None:
             infos.append(info)
+        if moe_in is not None:
+            moe_ins.append(moe_in)
     new_caches = None
     if use_cache:
         # in decode ``positions`` is a view of caches["pos"]: advance it
@@ -317,4 +363,5 @@ def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
     if ctx.collect_trace and infos:
         trace = torch.stack([i.topk_idx.to(torch.int32) for i in infos])
         probs = torch.stack([i.probs for i in infos])
-    return x, aux, new_caches, trace, probs
+    moe_inputs = torch.stack(moe_ins) if moe_ins else None
+    return x, aux, new_caches, trace, probs, moe_inputs

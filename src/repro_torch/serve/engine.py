@@ -75,6 +75,12 @@ class GenerationResult:
         b = self.tokens.shape[0]
         return b * self.steps / self.decode_s if self.decode_s else 0.0
 
+    def request_trace(self, b: int = 0) -> Optional[np.ndarray]:
+        """(steps, layers, k) routing of one request stream."""
+        if self.router_trace is None:
+            return None
+        return self.router_trace[:, :, b, :]
+
 
 class Decoded(NamedTuple):
     tokens: torch.Tensor               # (B, max_new) i32
@@ -127,8 +133,29 @@ class ServeStats:
                     f"negative ttft {r.ttft_s} for uid {r.uid}")
 
     @property
+    def cache_hbm_bytes_per_token(self) -> float:
+        return (self.cache_hbm_bytes / self.generated_tokens
+                if self.generated_tokens else 0.0)
+
+    @property
     def tokens_per_s(self) -> float:
         return self.generated_tokens / self.total_s if self.total_s else 0.0
+
+    @property
+    def busy_s(self) -> float:
+        """Engine busy time: prefill + decode, excluding the idle gaps
+        where the scheduler waited on request arrivals."""
+        return self.prefill_s + self.decode_s
+
+    @property
+    def goodput_tokens_per_s(self) -> float:
+        """Accepted tokens per busy second (comparable across offered
+        loads, unlike the wall-clock ``tokens_per_s``)."""
+        return (self.generated_tokens / self.busy_s) if self.busy_s else 0.0
+
+    @property
+    def busy_frac(self) -> float:
+        return self.busy_s / self.total_s if self.total_s else 0.0
 
     def latency_percentiles(self, qs: Sequence[float] = (50.0, 95.0)
                             ) -> Dict[float, float]:

@@ -224,6 +224,71 @@ def test_fused_kernel_deepseek_shapes_match_plain(dev, proj, T, path):
     assert not bool(got[~live].any())       # empty slots are exact zeros
 
 
+@pytest.mark.parametrize("path", ["simt", "mma"])
+@pytest.mark.parametrize("T,container", [(4, 8), (512, 4), (512, 8)])
+@pytest.mark.parametrize("proj", ["w1", "w2"])
+def test_fused_kernel_qwen3_shapes_match_plain(dev, proj, T, container,
+                                               path):
+    """Qwen3-MoE-30B-A3B's expert grid: E 128, d_model 2048 and d_expert
+    768, top-8 dispatch with top-n 3 at decode (T 4) and at a 512-token
+    admission, the heterogeneous widths of an allocated plan in one
+    container (2, 3, 4 and 8 bits in an 8-bit one; 2, 3 and 4 in a 4-bit
+    one), true ranks 0..256 under pad_rank 256, each main kernel forced
+    at either size, against the plain version in f64."""
+    E, R = 128, 256
+    K, N = (2048, 768) if proj == "w1" else (768, 2048)
+    widths = [b for b in (2, 3, 4, 8) if b <= container]
+    xe, me, ge, rows, _ = _dispatch_like(dev, E, T, K, 8, 3, seed=T)
+    args = list(_fused_args(dev, E, 1, K, N, R, container, gated=False,
+                            cap=None, eb=[widths[e % len(widths)]
+                                          for e in range(E)], seed=3 + T))
+    args[0], args[8] = xe, me
+    args[12] = torch.tensor([(0, 16, 0, 32, 128, 0, 256)[e % 7]
+                             for e in range(E)], dtype=torch.int32,
+                            device=dev)
+    args[9] = ge if proj == "w2" else None
+    args.append(rows)
+    got = qm._launch_fused(path, *args, bits=container, group_size=64)
+    want = qm.fused_expert_matmul_plain(xe.double(), *args[1:],
+                                        bits=container, group_size=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), want, **FUSED_TOL)
+    live = torch.arange(T, device=dev)[None] < rows[:, None]
+    assert not bool(got[~live].any())
+
+
+def test_artifact_codec_bf16_round_trip_on_card(dev, tmp_path):
+    """A stack with bf16 factors saved from the card and loaded back onto
+    it: every tensor bit-equal, on the card, in its dtype."""
+    from repro_torch.calib.artifact import (load_compression_artifact,
+                                            save_compression_artifact)
+    from repro_torch.config import ModelConfig, MoEConfig, QuantConfig
+    from repro_torch.core.pipeline import compress_expert_stack
+    q = QuantConfig(enabled=True, bits=2, rank_budget=16, factor_bits=16,
+                    hqq_iters=2)
+    cfg = ModelConfig(name="codec", family="moe", num_layers=1, d_model=128,
+                      num_heads=2, num_kv_heads=1, d_ff=0, vocab_size=64,
+                      moe=MoEConfig(num_experts=4, top_k=2, d_expert=64,
+                                    quant=q))
+    g = torch.Generator(device=dev).manual_seed(0)
+    stacks = [{p: compress_expert_stack(
+        torch.randn(shape, generator=g, device=dev) * 0.05, q,
+        bits=np.array([2, 3, 2, 4]))[0]
+        for p, shape in (("w1", (4, 128, 64)), ("w2", (4, 64, 128)))}]
+    assert stacks[0]["w1"].u.dtype == torch.bfloat16
+    save_compression_artifact(tmp_path, cfg, stacks)
+    back, _, _ = load_compression_artifact(tmp_path, cfg, device=dev)
+    for proj, a in stacks[0].items():
+        b = back[0][proj]
+        assert (a.bits, a.expert_bits, a.ranks, a.pad_rank) == \
+            (b.bits, b.expert_bits, b.ranks, b.pad_rank)
+        for x, y in [*zip(a.planes, b.planes)] + [
+                (getattr(a, f), getattr(b, f))
+                for f in ("scale", "zero", "u", "v", "u_scale", "v_scale")]:
+            assert y.device.type == "cuda" and x.dtype == y.dtype
+            assert torch.equal(x, y)
+
+
 def _flash_args(dev, B, H, KVH, hd, S, kind, filled, seed):
     """Flash-decode arguments: slots 0..filled-1 hold positions
     0..filled-1, the rest are empty; ``filled`` "ring": a ring cache that
@@ -255,8 +320,11 @@ def _flash_args(dev, B, H, KVH, hd, S, kind, filled, seed):
 # (B, H, KVH, hd, S): the first case is the original one; then batch 1;
 # B * KVH = 160 rows (cluster size 1); S 1003 (no multiple of a tile or
 # of the cluster); S 8192; G 1 and G 8; hd 256 and hd 32 (the reduced
-# configs' width)
-_FLASH_SHAPES = {"b3g6": (3, 12, 2, 64, 200), "b1": (1, 32, 8, 128, 512),
+# configs' width); Qwen3-MoE-30B-A3B's G 8 (32 / 4 heads) at serve's
+# (4, 512) and (4, 1024) buckets
+_FLASH_SHAPES = {"qwen3_s512": (4, 32, 4, 128, 512),
+                 "qwen3_s1024": (4, 32, 4, 128, 1024),
+                 "b3g6": (3, 12, 2, 64, 200), "b1": (1, 32, 8, 128, 512),
                  "rows160": (20, 32, 8, 128, 96),
                  "s1003": (2, 16, 4, 128, 1003),
                  "s8192": (2, 32, 8, 128, 8192), "g1": (2, 8, 8, 128, 300),

@@ -159,6 +159,7 @@ def test_llama_greedy_generate_token_identical(impl):
     np.testing.assert_allclose(res.logprobs, want.logprobs, rtol=1e-4,
                                atol=1e-4)
     assert res.router_trace is None and want.router_trace is None
+    assert res.request_trace(0) is None and want.request_trace(0) is None
 
 
 def _errors(w, st):

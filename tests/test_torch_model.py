@@ -174,12 +174,16 @@ def test_port_imports_neither_jax_nor_repro():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     for mod in ("serve/scheduler.py", "serve/controller.py",
                 "offload/__init__.py", "offload/store.py",
-                "offload/prefetch.py", "offload/cache.py"):
+                "offload/prefetch.py", "offload/cache.py",
+                "data/synthetic.py", "calib/stats.py", "calib/allocate.py",
+                "calib/artifact.py", "checkpoint/artifact.py",
+                "launch/compress.py", "launch/serve.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro", "flax"), \
+            assert top not in ("jax", "jaxlib", "repro", "flax",
+                               "ml_dtypes"), \
                 f"{f.relative_to(ROOT)} imports {name}"
 
 

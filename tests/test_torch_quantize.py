@@ -48,14 +48,19 @@ def test_quantize_with_params_bit_identical(bits, store):
     s, z = np.array(s), np.array(z)
     jt = jq.quantize_with_params(jnp.asarray(w), jnp.asarray(s),
                                  jnp.asarray(z), bits, 64, store_bits=store)
-    tt = tq.quantize_with_params(torch.from_numpy(w), torch.from_numpy(s),
-                                 torch.from_numpy(z), bits, 64,
-                                 store_bits=store)
-    assert tt.bits == jt.bits
-    for a, b in zip(jt.planes, tt.planes):
+    # the port's route: codes, then packed into the container width
+    codes = tq.quantize_codes(torch.from_numpy(w), torch.from_numpy(s),
+                              torch.from_numpy(z), bits, 64)
+    planes = tq.pack_bits(codes, store or bits)
+    assert jt.bits == (store or bits)
+    assert len(planes) == len(jt.planes)
+    for a, b in zip(jt.planes, planes):
         assert np.array_equal(np.asarray(a), b.numpy())
-    np.testing.assert_array_equal(np.asarray(jq.dequantize(jt)),
-                                  tq.dequantize(tt).numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jq.dequantize(jt)),
+        tq.dequantize_codes(tq.unpack_bits(planes, store or bits),
+                            torch.from_numpy(s), torch.from_numpy(z),
+                            64).numpy())
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4])

@@ -126,8 +126,14 @@ def assert_same_serve(a, b):
     np.testing.assert_array_equal(a.router_trace, b.router_trace)
     assert a.offload_report == b.offload_report
     for f in ("chunks", "generated_tokens", "prefill_tokens",
-              "cache_hbm_bytes", "num_slots", "chunk"):
+              "cache_hbm_bytes", "num_slots", "chunk",
+              "cache_hbm_bytes_per_token"):
         assert getattr(a, f) == getattr(b, f), f
+    # the wall-clock properties: JAX's definitions on the port's fields
+    for f in ("cache_hbm_bytes_per_token", "busy_s",
+              "goodput_tokens_per_s", "busy_frac"):
+        assert getattr(type(a), f).fget(b) == getattr(b, f), f
+    assert 0 < b.busy_frac <= 1
     if a.plan_trace is None:
         assert b.plan_trace is None
     else:
@@ -456,6 +462,10 @@ def test_generate_offload_and_controller_match_jax(m):
     a, b = got["jax"], got["torch"]
     np.testing.assert_array_equal(a.tokens, b.tokens)
     np.testing.assert_array_equal(a.router_trace, b.router_trace)
+    for row in range(3):
+        assert b.request_trace(row).shape == (6, 2, 2)
+        np.testing.assert_array_equal(a.request_trace(row),
+                                      b.request_trace(row))
     np.testing.assert_allclose(b.logprobs, a.logprobs, **LP_TOL)
     assert a.offload_report == b.offload_report
     assert got["jax_level"] == got["torch_level"]
