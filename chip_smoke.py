@@ -75,6 +75,25 @@ Phases:
                 impl='ref'; kernel 1 on the plan's stacks (E 128, top-8,
                 heterogeneous widths and ranks) on both paths in f64;
                 kernel 1 and flash-decode at G 8 (S 512, 1024) timed
+ 10. stream     async expert streaming, run right after phase 8 on its
+                weights and stacks (before phase 9, which needs the
+                memory): each engine's experts in a pinned host image,
+                its MoE layers serving from fallback-booted device
+                containers, every metered byte copied on a copy stream
+                (CUDA events around each copy give the link rate).
+                Mixtral-8x7B (f32, 2 layers): phase 8's "serve = generate"
+                workload under 'block' at cache 8 and LRU 3 of 8, tokens
+                and traces equal to phase 8's resident serve, metered ==
+                observed bytes per store, the graph captured before
+                ``attach_streaming`` dropped, a warm serve copying
+                nothing; DeepSeek-MoE-16B (bf16, 28 layers): phase 8's
+                16 requests under 'block' twice (equal to phase 8's
+                resident run and to each other, the second profiled for
+                the idle share), then under 'degrade'; wire and physical
+                MB/token, link GB/s, stall/transfer/sync seconds, overlap
+                efficiency, re-runs, pin seconds, MemAvailable, peak
+                device memory; then pinned H2D copy rates (one expert
+                payload, 1 GiB)
 
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -83,6 +102,7 @@ non-zero at once.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -1498,10 +1518,12 @@ def same_serve(a, b, plans: bool = True) -> bool:
 
 def device_busy(fn):
     """``fn()`` under the profiler, device activity only.  Returns (its
-    result, ms the card spent in kernels, copies and sets summed over
-    every one it ran, their number, wall s with the profiler on).  Reads
-    the profiler's raw events: a serve run's ~10^5 kernels are too many
-    for its per-event Python post-processing."""
+    result, ms of the window in which the card ran anything: the union of
+    every kernel's, copy's and set's span, since a copy stream may run
+    beside the compute stream; ms of H2D copies; device ops; wall s with
+    the profiler on).  Reads the profiler's raw events: a serve run's
+    ~10^5 kernels are too many for its per-event Python
+    post-processing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1513,7 +1535,15 @@ def device_busy(fn):
            if e.device_type() == DeviceType.CUDA]
     if not evs:
         fail("the profiler saw no device activity in a serve run")
-    return res, sum(e.duration_ns() for e in evs) / 1e6, len(evs), wall
+    busy, end = 0, None
+    for a, b in sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                       for e in evs):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    h2d = sum(e.duration_ns() for e in evs if "HtoD" in e.name())
+    return res, busy / 1e6, h2d / 1e6, len(evs), wall
 
 
 def check_bytes(name: str, st) -> None:
@@ -1656,7 +1686,8 @@ def serve_mixtral(dev, mx, counters) -> dict:
              f"{rel:.3e} (limit {SCORE_TOL})")
     log(f"  score ({B} x {P} tokens, mean NLL): {s_k!r} against impl='ref' "
         f"{s_r!r}, relative {rel:.3e} (limit {SCORE_TOL})")
-    return {"launches": g_l, "eager_launches": e_l}
+    return {"launches": g_l, "eager_launches": e_l, "resident": sv,
+            "prompts": prompts}
 
 
 def serve_deepseek(dev, ds, counters) -> dict:
@@ -1684,7 +1715,7 @@ def serve_deepseek(dev, ds, counters) -> dict:
     a1 = run()
     launches = {n: c.n for n, c in counters.items()}
     check_bytes("deepseek serve", a1)
-    a2, busy_ms, n_dev, wall = device_busy(run)
+    a2, busy_ms, _h2d, n_dev, wall = device_busy(run)
     busy_s = busy_ms / 1e3
     # the idle share's window is the profiled run's own serve window (no
     # capture in it: the first run captured)
@@ -1746,6 +1777,321 @@ def serve_deepseek(dev, ds, counters) -> dict:
                "run's work, the plan graph captured)", st)
     serve_line("deepseek top_n 0", lo_st)
     serve_line("deepseek budget", b1)
+    return {"launches": launches, "eager_launches": {}, "resident": a1}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: async expert streaming (run right after phase 8, on the
+# weights and stacks of its engines)
+# ---------------------------------------------------------------------------
+
+def mem_available_gib() -> float:
+    """The host's MemAvailable (``/proc/meminfo``), GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def own_moe_params(params) -> dict:
+    """``params`` with their own layer and MoE dicts (the same tensors and
+    stacks): ``attach_streaming`` replaces an engine's MoE stacks with its
+    containers, which must not reach the phase 8 engines' params."""
+    return {**params, "layers": [dict(lp, moe=dict(lp["moe"]))
+                                 if "moe" in lp else lp
+                                 for lp in params["layers"]]}
+
+
+def timed_backend(dev):
+    """The engine's transfer backend with a pair of CUDA events around
+    each H2D copy on its copy stream, and the payload bytes each moved:
+    the link's physical rate, measured here (the engine counts wire
+    bytes).  ``take()`` returns (payload bytes, seconds the copy stream
+    spent copying, copies) since the last ``take``."""
+    from repro_torch.offload.staging import DeviceTransferBackend
+
+    class TimedBackend(DeviceTransferBackend):
+        def __init__(self):
+            super().__init__(dev)
+            self.spans, self.nbytes = [], 0
+
+        def copy(self, payload, tag=None, staging=None):
+            if staging is not None and staging.free is not None:
+                # the wait for the lane's buffer, outside the span
+                self.stream.wait_event(staging.free)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record(self.stream)
+            h = super().copy(payload, tag, staging)
+            b.record(self.stream)
+            self.spans.append((a, b))
+            self.nbytes += payload.nbytes
+            return h
+
+        def take(self):
+            torch.cuda.synchronize(dev)
+            secs = sum(a.elapsed_time(b) for a, b in self.spans) / 1e3
+            out = (self.nbytes, secs, len(self.spans))
+            self.spans, self.nbytes = [], 0
+            return out
+
+    return TimedBackend()
+
+
+def check_oracle(name: str, eng, st) -> None:
+    """Per store, metered wire bytes == the bytes its copies put on the
+    link, and the run's report says the same."""
+    for li, s in enumerate(eng._stores):
+        if s.total_bytes != s.observed_copy_bytes:
+            fail(f"{name}: store {li} metered {s.total_bytes} B, observed "
+                 f"{s.observed_copy_bytes} B")
+    rep = st.offload_report
+    if rep["observed_copy_bytes"] != rep["total_bytes"]:
+        fail(f"{name}: report metered {rep['total_bytes']} B, observed "
+             f"{rep['observed_copy_bytes']} B")
+
+
+def same_tokens_traces(a, b) -> bool:
+    return (all(np.array_equal(x.tokens, y.tokens)
+                and np.array_equal(x.trace, y.trace)
+                for x, y in zip(a.results, b.results))
+            and len(a.results) == len(b.results)
+            and np.array_equal(a.router_trace, b.router_trace))
+
+
+def stream_line(name: str, st, link, before=None) -> None:
+    """Log one streamed run's wire bytes, physical bytes and link rate,
+    and the stream engine's counters over the run (``before``: the
+    engine's ``report()`` when the run started; None: a fresh engine)."""
+    rep, sr = st.offload_report, dict(st.stream_report)
+    for k, v in (before or {}).items():
+        if k != "overlap_efficiency" and isinstance(v, (int, float)) \
+                and not isinstance(v, bool) and k not in (
+                    "ring_slots", "fallback_bits", "host_nbytes",
+                    "in_flight"):
+            sr[k] = sr[k] - v
+    tok = max(rep["tokens"], 1)
+    nbytes, secs, copies = link
+    log(f"  {name}: wire {rep['total_bytes'] / tok / 1e6:.4f} MB/token "
+        f"metered = {rep['observed_copy_bytes'] / tok / 1e6:.4f} observed "
+        f"(demand {rep['demand_bytes'] / tok / 1e6:.4f}, compensator "
+        f"{rep['compensator_bytes'] / tok / 1e6:.4f}, prefetch "
+        f"{rep['prefetch_bytes'] / tok / 1e6:.4f} of which wasted "
+        f"{rep['wasted_prefetch_bytes'] / tok / 1e6:.4f}); hit rate "
+        f"{rep['hit_rate']:.4f}; {copies} copies moved {nbytes / 1e9:.3f} "
+        f"GB of payload ({nbytes / tok / 1e6:.4f} MB/token) in "
+        f"{secs:.3f} s of copy-stream time = link "
+        f"{nbytes / max(secs, 1e-12) / 1e9:.2f} GB/s")
+    log(f"  {name}: stream engine over the run: {sr['issued_copies']} "
+        f"copies issued ({sr['issued_bytes'] / 1e9:.3f} GB wire), stalls "
+        f"{sr['stalls']} ({sr['stall_s']:.3f} s), transfer_s "
+        f"{sr['transfer_s']:.3f}, sync_copy_s {sr['sync_copy_s']:.3f}, "
+        f"overlap_efficiency (cumulative) {sr['overlap_efficiency']:.4f}, "
+        f"reruns {sr['reruns']}, degraded tokens {sr['degraded_tokens']}, "
+        f"abandoned copies {sr['abandoned_copies']}, flushed "
+        f"{sr['flushed_bytes']} B, in flight at the end {sr['in_flight']}; "
+        f"meter {st.meter_s * 1e3 / max(st.chunks, 1):.2f} host ms/chunk")
+
+
+def stream_mixtral(dev, mx, sv8, counters) -> dict:
+    """Phase 3's Mixtral-8x7B (f32, 2 layers at full width), phase 8's
+    "serve = generate" workload streamed under 'block' at cache 8 and at
+    LRU 3 of 8: tokens and traces equal phase 8's resident serve, the
+    oracle holds per store, no token degraded; a graph captured over the
+    true stacks before ``attach_streaming`` is dropped; at cache 8 a warm
+    second serve copies nothing."""
+    from repro_torch.config import StreamConfig
+    from repro_torch.serve import ServeEngine
+    eng0, stacks, cfg = mx["engine"], mx["stacks"], mx["cfg"]
+    want, prompts = sv8["resident"], sv8["prompts"]
+    NEW = 32
+    launches = None
+    for cap in (8, 3):
+        eng = ServeEngine(cfg, own_moe_params(eng0.params), quantized=True,
+                          device=dev)
+        eng.generate(prompts, max_new=NEW)        # the serve's bucket
+        old = list(eng.graphs.values())
+        eng.attach_offload(stacks, policy="ours", cache_capacity=cap)
+        backend = timed_backend(dev)
+        eng.attach_streaming(StreamConfig(enabled=True), backend=backend)
+        if eng.num_graphs != 0:
+            fail("attach_streaming kept a graph captured over the true "
+                 "stacks")
+        for c in counters.values():
+            c.reset()
+        st = eng.generate_many(list(prompts), max_new=NEW, num_slots=4,
+                               chunk=8)
+        link = backend.take()
+        if cap == 8:
+            launches = {n: c.n for n, c in counters.items()}
+        name = f"mixtral stream cache {cap}"
+        if not same_tokens_traces(st, want):
+            fail(f"{name}: tokens or traces differ from phase 8's resident "
+                 "serve")
+        check_oracle(name, eng, st)
+        check_bytes(name, st)
+        if st.stream_report["degraded_tokens"]:
+            fail(f"{name}: {st.stream_report['degraded_tokens']} tokens "
+                 "degraded under 'block'")
+        if eng.num_graphs != 1 or any(g is o for g in eng.graphs.values()
+                                      for o in old):
+            fail(f"{name}: {eng.num_graphs} graphs after the serve, or the "
+                 "pre-streaming graph replayed")
+        log(f"  {name} ({len(prompts)} prompts x {prompts.shape[1]}, {NEW} "
+            f"new, 4 slots, chunk 8, block): tokens and traces equal phase "
+            f"8's resident serve; metered == observed per store; "
+            f"{eng.num_graphs} graph (the pre-streaming one dropped); host "
+            f"image {eng.stream.report()['host_nbytes'] / 2**20:.1f} MiB "
+            f"pinned in {eng.stream.image_s:.3f} s, fallback built in "
+            f"{eng.stream.fallback_s:.3f} s")
+        serve_line(name, st)
+        stream_line(name, st, link)
+        if cap == 8:
+            sr = eng.stream.report()
+            st2 = eng.generate_many(list(prompts), max_new=NEW, num_slots=4,
+                                    chunk=8)
+            link2 = backend.take()
+            sr2 = st2.stream_report
+            if (sr2["issued_copies"] != sr["issued_copies"]
+                    or sr2["reruns"] != sr["reruns"] or link2[2]):
+                fail(f"{name}: the warm serve issued "
+                     f"{sr2['issued_copies'] - sr['issued_copies']} copies "
+                     f"and re-ran {sr2['reruns'] - sr['reruns']} chunks")
+            if not same_tokens_traces(st2, want):
+                fail(f"{name}: the warm serve's tokens differ")
+            check_oracle(name + " warm", eng, st2)
+            log(f"  {name} warm second serve: no copy issued, no re-run, "
+                f"same tokens; {st2.tokens_per_s:.2f} tok/s")
+        del eng, backend
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "eager_launches": {}}
+
+
+def copy_rate(dev, image) -> None:
+    """Pinned H2D copies on a side stream between CUDA events: one
+    DeepSeek-MoE expert weight payload (its three projections' codes and
+    scales) and 1 GiB."""
+    stream = torch.cuda.Stream(dev)
+    small = image.weight_payload(0).data
+    big = torch.empty((2**30,), dtype=torch.uint8, pin_memory=True)
+    if not (small.is_pinned() and big.is_pinned()):
+        fail("copy rate: a host source is not pinned")
+    dst = torch.empty((2**30,), dtype=torch.uint8, device=dev)
+    rates = []
+    for name, src, iters in (("one expert payload", small, 200),
+                             ("1 GiB", big, 5)):
+        d = dst[:src.numel()]
+        with torch.cuda.stream(stream):
+            d.copy_(src, non_blocking=True)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record(stream)
+            for _ in range(iters):
+                d.copy_(src, non_blocking=True)
+            b.record(stream)
+        b.synchronize()
+        secs = a.elapsed_time(b) / 1e3
+        rates.append(f"{name} ({src.numel() / 1e6:.3f} MB) "
+                     f"{src.numel() * iters / secs / 1e9:.2f} GB/s "
+                     f"({secs / iters * 1e3:.4f} ms each, {iters} copies)")
+    log("  copy rate, pinned host -> device on a side stream: "
+        + "; ".join(rates))
+    del big, dst
+
+
+def stream_deepseek(dev, ds, resident, counters) -> dict:
+    """Phase 7's DeepSeek-MoE-16B (bf16, 28 layers), phase 8's workload
+    (16 requests, prompts 64..512, 32 new, 4 slots, chunks of 8, LRU 16
+    of 64, static plan) streamed: under 'block' twice (tokens and traces
+    equal phase 8's resident run, the two runs identical, the oracle
+    holds; the second run profiled for the card's idle share), then under
+    'degrade' on fresh containers (it terminates; degraded tokens and
+    tok/s).  Then the pinned copy rate."""
+    from repro_torch.config import StreamConfig
+    from repro_torch.serve import ServeEngine, synthetic_workload
+    eng0, stacks, cfg = ds["engine"], ds["stacks"], ds["cfg"]
+
+    def workload():
+        return synthetic_workload(16, cfg.vocab_size, max_new=32,
+                                  min_len=64, max_len=512, seed=7)
+
+    def build(policy):
+        mem0 = mem_available_gib()
+        eng = ServeEngine(cfg, own_moe_params(eng0.params), quantized=True,
+                          device=dev)
+        eng.attach_offload(stacks, policy="ours", cache_capacity=16)
+        backend = timed_backend(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng.attach_streaming(StreamConfig(enabled=True, miss_policy=policy),
+                             backend=backend)
+        host = eng.stream.report()["host_nbytes"]
+        pinned = sum(L.image.buffer.numel() for L in eng.stream.layers)
+        log(f"  deepseek stream {policy}: host image "
+            f"{host / 2**30:.3f} GiB of leaves in {pinned / 2**30:.3f} GiB "
+            f"pinned ({len(eng.stream.layers)} layers), pinned and filled "
+            f"in {eng.stream.image_s:.3f} s; fallback containers "
+            f"({StreamConfig().fallback_bits}-bit RTN) built in "
+            f"{eng.stream.fallback_s:.3f} s; host MemAvailable "
+            f"{mem0:.1f} -> {mem_available_gib():.1f} GiB; device memory "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+        return eng, backend
+
+    eng, backend = build("block")
+    g0 = eng.num_graphs
+    for c in counters.values():
+        c.reset()
+    b1 = eng.serve(workload(), num_slots=4, chunk=8)
+    link1 = backend.take()
+    launches = {n: c.n for n, c in counters.items()}
+    before2 = eng.stream.report()
+    b2, busy_ms, h2d_ms, n_dev, wall = device_busy(
+        lambda: eng.serve(workload(), num_slots=4, chunk=8))
+    link2 = backend.take()
+    idle = 1 - busy_ms / 1e3 / b2.total_s
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for name, st in (("deepseek stream block", b1),
+                     ("deepseek stream block profiled", b2)):
+        if not same_tokens_traces(st, resident):
+            fail(f"{name}: tokens or traces differ from phase 8's resident "
+                 "run")
+        check_oracle(name, eng, st)
+        check_bytes(name, st)
+        if st.stream_report["degraded_tokens"]:
+            fail(f"{name}: tokens degraded under 'block'")
+    if eng.num_graphs - g0 != 1:
+        fail(f"deepseek stream: {eng.num_graphs - g0} graphs captured over "
+             "two serves, expected 1")
+    serve_line("deepseek stream block", b1)
+    stream_line("deepseek stream block", b1, link1)
+    serve_line("deepseek stream block profiled", b2, idle)
+    stream_line("deepseek stream block profiled", b2, link2, before2)
+    log(f"  deepseek stream block: both runs' tokens and traces equal phase "
+        f"8's resident run and each other; metered == observed per store; "
+        f"card busy {busy_ms / 1e3:.3f} s (union of {n_dev} device ops, "
+        f"H2D copies {h2d_ms / 1e3:.3f} s of them) of the profiled run's "
+        f"{b2.total_s:.3f} s ({wall:.1f} s with the profiler): idle share "
+        f"{idle:.3f}; peak device memory {peak:.2f} GiB; graphs "
+        f"{eng.num_graphs}; wrapper launches {launches}")
+    del eng, backend, b1, b2
+    gc.collect()            # the stores and the stream engine point at each other
+    torch.cuda.empty_cache()
+
+    eng, backend = build("degrade")
+    d1 = eng.serve(workload(), num_slots=4, chunk=8)
+    linkd = backend.take()
+    check_oracle("deepseek stream degrade", eng, d1)
+    check_bytes("deepseek stream degrade", d1)
+    serve_line("deepseek stream degrade", d1)
+    stream_line("deepseek stream degrade", d1, linkd)
+    log(f"  deepseek stream degrade: terminated, "
+        f"{d1.stream_report['degraded_tokens']} of {d1.generated_tokens} "
+        f"tokens degraded; {d1.tokens_per_s:.2f} tok/s")
+    copy_rate(dev, eng.stream.layers[0].image)
+    del eng, backend
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"launches": launches, "eager_launches": {}}
 
 
@@ -2205,8 +2551,6 @@ def main() -> int:
     t8 = time.perf_counter()
     log("  -- Mixtral-8x7B (phase 3's engine, f32)")
     served = {"mixtral_serve": serve_mixtral(dev, mixtral, counters)}
-    del mixtral
-    torch.cuda.empty_cache()
     log("  -- DeepSeek-MoE-16B (phase 7's engine, bf16)")
     served["deepseek_serve"] = serve_deepseek(dev, ds, counters)
     for name, sv in served.items():
@@ -2214,6 +2558,24 @@ def main() -> int:
             if sv["launches"].get(kname, 0) <= 0:
                 fail(f"{name}: {kname} was never launched: {sv['launches']}")
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
+
+    log("== phase 10: async expert streaming (on phase 8's weights, before "
+        "phase 9)")
+    t10 = time.perf_counter()
+    log("  -- Mixtral-8x7B (phase 3's weights, f32)")
+    streamed = {"mixtral_stream": stream_mixtral(
+        dev, mixtral, served["mixtral_serve"], counters)}
+    del mixtral
+    torch.cuda.empty_cache()
+    log("  -- DeepSeek-MoE-16B (phase 7's weights, bf16)")
+    streamed["deepseek_stream"] = stream_deepseek(
+        dev, ds, served["deepseek_serve"]["resident"], counters)
+    for name, sv in streamed.items():
+        for kname in ("fused_expert_matmul", "flash_decode_attention"):
+            if sv["launches"].get(kname, 0) <= 0:
+                fail(f"{name}: {kname} was never launched: {sv['launches']}")
+    served.update(streamed)
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
     del ds
     torch.cuda.empty_cache()
 

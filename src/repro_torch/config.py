@@ -146,10 +146,43 @@ class ControlConfig:
 
 
 @dataclass(frozen=True)
+class StreamConfig:
+    """True asynchronous expert streaming (offload/staging.py).
+
+    When enabled, offloaded serving actually *moves* expert bytes: the
+    compressed stacks live in a pinned host-memory image, a per-layer
+    staging ring issues async H2D copies for every byte the offload
+    meter charges, and the decode graph reads device stack containers
+    that the streamed payloads are copied into in place (initialized to
+    a device-resident ``fallback_bits`` "little expert" copy).
+
+    ``miss_policy``:
+      'block'    a chunk that routed to a not-yet-streamed expert stalls,
+                 stages it, and re-runs from a cache snapshot — streamed
+                 decode is token-identical to the all-resident path;
+      'degrade'  never stall: the missed expert is served from the
+                 resident low-bit fallback (MoBiLE little-expert
+                 semantics) and the affected tokens count as degraded.
+    A copy stalled longer than ``stall_timeout_s`` degrades even under
+    'block' (a wedged link must not hang decode forever).
+    """
+    enabled: bool = False
+    ring_slots: int = 2                # per-layer staging depth (double buffer)
+    miss_policy: str = "block"         # block | degrade
+    fallback_bits: int = 2             # resident low-bit fallback width
+    stall_timeout_s: float = 5.0       # stalled-copy degrade threshold
+    max_reruns: int = 8                # fixpoint re-run bound per chunk
+
+    def __post_init__(self):
+        assert self.miss_policy in ("block", "degrade"), self.miss_policy
+        assert self.ring_slots >= 1, self.ring_slots
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     """The serving knobs the port reads (the JAX ``ServeConfig`` fields
-    of the same names and defaults; paging, prefix caching, streaming
-    and speculative decoding are not ported yet)."""
+    of the same names and defaults; paging, prefix caching and
+    speculative decoding are not ported yet)."""
     temperature: float = 0.0
     eos_id: int = 1
     cache_experts: int = 4             # device-resident expert cache per layer
@@ -160,3 +193,6 @@ class ServeConfig:
     # adaptive top-n restoration under a bandwidth budget; when enabled,
     # ServeEngine.attach_offload attaches the controller
     control: ControlConfig = field(default_factory=ControlConfig)
+    # true async expert streaming; when enabled, attach_offload attaches
+    # the transfer engine (it feeds the same byte meters)
+    stream: StreamConfig = field(default_factory=StreamConfig)

@@ -128,6 +128,31 @@ class QuantizedTensor:
     shape: Tuple[int, int]
 
 
+def _group_minmax(w: torch.Tensor, group_size: int):
+    """(..., K, N) -> groups (..., K//G, G, N) and their min and max over
+    each group, keepdims (..., K//G, 1, N)."""
+    *lead, k, n = w.shape
+    g = w.reshape(*lead, k // group_size, group_size, n)
+    return (g, g.amin(dim=-2, keepdim=True), g.amax(dim=-2, keepdim=True))
+
+
+def rtn_quantize(w: torch.Tensor, bits: int, group_size: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain round-to-nearest groupwise asymmetric quantization of
+    (..., K, N) f32 weights, as the JAX package's ``quantize`` rounds
+    (half to even, f32 throughout).  Returns (uint8 codes (..., K, N),
+    scale, zero), each of the last two (..., K//G, N)."""
+    *lead, k, n = w.shape
+    g, lo, hi = _group_minmax(w.float(), group_size)
+    qmax = (1 << bits) - 1
+    scale = torch.clamp_min((hi - lo) / qmax, 1e-8)
+    zero = -lo / scale
+    q = torch.clamp(torch.round(g / scale + zero), 0, qmax)
+    return (q.reshape(*lead, k, n).to(torch.uint8),
+            scale.reshape(*lead, k // group_size, n),
+            zero.reshape(*lead, k // group_size, n))
+
+
 def quantize_codes(w: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
                    bits: int, group_size: int) -> torch.Tensor:
     """Unpacked uint8 codes in [0, 2^bits) for given scale/zero.  ``w``

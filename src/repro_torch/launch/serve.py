@@ -23,13 +23,17 @@ between chunks:
   serving equals in-memory compression of the same plan;
 - ``--bytes-per-token B`` / ``--target-tokens-per-s T`` (with
   ``--offload``): the runtime bandwidth-budget controller retunes the
-  per-layer (top_n, rank_cap) plan between chunks.
+  per-layer (top_n, rank_cap) plan between chunks;
+- ``--stream`` (with ``--offload``): async expert streaming — the experts
+  live in a pinned host image and every metered byte is copied into the
+  device containers the decode graph reads (``--stream-ring`` slots per
+  layer, ``--stream-miss`` block | degrade, ``--stream-fallback-bits``).
 
 Everything runs on ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path).  The JAX CLI's expert-parallel mesh, async expert
-streaming, paged KV cache with prefix reuse and speculative decoding are
-not ported: their flags raise ``NotImplementedError`` naming the ROADMAP
-item.  The compile count becomes ``ServeEngine.num_graphs``.
+PyTorch path).  The JAX CLI's expert-parallel mesh, paged KV cache with
+prefix reuse and speculative decoding are not ported: their flags raise
+``NotImplementedError`` naming the ROADMAP item.  The compile count
+becomes ``ServeEngine.num_graphs``.
 """
 from __future__ import annotations
 
@@ -46,10 +50,6 @@ from .compress import PARAMS_INIT
 # flags of the JAX CLI whose serving paths are not ported: the ROADMAP
 # item each waits for
 _UNPORTED = {"mesh": "A13 (expert parallelism)",
-             "stream": "A10 (async expert streaming)",
-             "stream_ring": "A10 (async expert streaming)",
-             "stream_miss": "A10 (async expert streaming)",
-             "stream_fallback_bits": "A10 (async expert streaming)",
              "page_size": "A9 (paged KV cache)",
              "prefix_cache": "A9 (paged KV cache)",
              "spec_k": "A11 (speculative decoding)",
@@ -115,16 +115,25 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("aggregate", "per_shard"),
                     help="what the byte budget constrains (per_shard needs "
                          "--mesh: not ported, ROADMAP A13)")
-    # -- async expert streaming (not ported) ------------------------------
+    # -- async expert streaming -------------------------------------------
     ap.add_argument("--stream", action="store_true",
-                    help="async expert streaming (not ported: ROADMAP A10)")
-    ap.add_argument("--stream-ring", type=int, default=None,
-                    help="staging-ring slots (not ported: ROADMAP A10)")
-    ap.add_argument("--stream-miss", default=None,
+                    help="serve through the async expert-streaming engine "
+                         "(needs --offload): experts live in pinned host "
+                         "memory and stream into device containers via "
+                         "per-layer staging rings; decode blocks only on "
+                         "a true miss")
+    ap.add_argument("--stream-ring", type=int, default=2,
+                    help="staging-ring slots per layer (in-flight H2D "
+                         "copies; 2 = double buffer)")
+    ap.add_argument("--stream-miss", default="block",
                     choices=("block", "degrade"),
-                    help="miss policy (not ported: ROADMAP A10)")
-    ap.add_argument("--stream-fallback-bits", type=int, default=None,
-                    help="fallback width (not ported: ROADMAP A10)")
+                    help="on a routed expert whose copy has not landed: "
+                         "'block' stages + re-runs the chunk (token-"
+                         "identical to all-resident), 'degrade' serves it "
+                         "from the resident low-bit fallback")
+    ap.add_argument("--stream-fallback-bits", type=int, default=2,
+                    help="bit width of the device-resident fallback copy "
+                         "that serves missed experts under 'degrade'")
     return ap
 
 
@@ -151,6 +160,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.artifact and not args.offload:
         ap.error("--artifact needs --offload (it replaces the startup "
                  "compression of the offload path)")
+    if args.stream and not args.offload:
+        ap.error("--stream needs --offload (the stream engine is driven "
+                 "by the offload stores' metering events)")
     cfg = get_config(args.arch, reduced=not args.full_config)
     if args.offload and cfg.moe is None:
         ap.error(f"--offload needs an MoE arch; {cfg.name} has none")
@@ -182,7 +194,7 @@ def run(cfg, args) -> Dict:
     (with ``--offload``), the seconds the artifact took to load (with
     ``--artifact``) and the ``ServeStats`` (``--requests``) or
     ``GenerationResult`` (fixed batch)."""
-    from ..config import ControlConfig
+    from ..config import ControlConfig, StreamConfig
     from ..models.transformer import (apply_compressed_stacks,
                                       compress_moe_params, init_params)
     from ..serve import ServeEngine, synthetic_workload
@@ -219,6 +231,11 @@ def run(cfg, args) -> Dict:
                 enabled=True, bytes_per_token=args.bytes_per_token,
                 tokens_per_s=args.target_tokens_per_s,
                 link_bw=args.link_bw))
+        if args.stream:
+            eng.attach_streaming(StreamConfig(
+                enabled=True, ring_slots=args.stream_ring,
+                miss_policy=args.stream_miss,
+                fallback_bits=args.stream_fallback_bits))
     else:
         eng = ServeEngine(cfg, params, device=dev)
     out = {"engine": eng, "stacks_by_layer": stacks_by_layer,
@@ -249,6 +266,16 @@ def run(cfg, args) -> Dict:
                   f"{rep['bytes_per_token'] / 2**10:.1f} KiB/token, "
                   f"cache hit {rep['hit_rate']:.0%}, prefetch accuracy "
                   f"{rep['prefetch_accuracy']:.0%}")
+        sr = stats.stream_report
+        if sr is not None:
+            print(f"stream ({sr['miss_policy']}, ring {sr['ring_slots']}): "
+                  f"overlap {sr['overlap_efficiency']:.0%}, "
+                  f"{sr['observed_copies']} copies "
+                  f"({sr['observed_copy_bytes'] / 2**20:.1f} MiB observed "
+                  f"== {sr['metered_bytes'] / 2**20:.1f} MiB metered), "
+                  f"{sr['stalls']} stalls ({sr['stall_s'] * 1e3:.0f}ms), "
+                  f"{sr['reruns']} re-runs, "
+                  f"{sr['degraded_tokens']} degraded tokens")
         if eng.controller is not None and eng.controller.history:
             c = eng.controller
             tail = c.history[len(c.history) // 2:]
@@ -274,6 +301,15 @@ def run(cfg, args) -> Dict:
         print(f"offload ({rep['policy']}): "
               f"{rep['bytes_per_token'] / 2**10:.1f} KiB/token, "
               f"cache hit {rep['hit_rate']:.0%}")
+    if res.stream_report is not None:
+        sr = res.stream_report
+        print(f"stream ({sr['miss_policy']}, ring {sr['ring_slots']}): "
+              f"overlap {sr['overlap_efficiency']:.0%}, "
+              f"{sr['observed_copies']} copies "
+              f"({sr['observed_copy_bytes'] / 2**20:.1f} MiB observed == "
+              f"{sr['metered_bytes'] / 2**20:.1f} MiB metered), "
+              f"{sr['stalls']} stalls, {sr['degraded_tokens']} degraded "
+              f"tokens")
     return out
 
 

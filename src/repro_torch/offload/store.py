@@ -113,6 +113,14 @@ class ExpertStore:
         self.comp_bytes_moved = 0
         self.prefetch_bytes = 0
         self.wasted_prefetch_bytes = 0
+        # async transfer engine (offload/staging.py).  When attached, the
+        # meter drives real copies: every metering event calls back into
+        # the engine, and the engine acknowledges each copy it puts on
+        # the link via ``note_copy`` — the observed side of the
+        # metered-bytes == observed-copies oracle.
+        self._engine = None
+        self.observed_copies = 0
+        self.observed_copy_bytes = 0
         # expert -> rank cap its device-resident compensator factors were
         # fetched at (None = uncapped / full true rank); factors ride the
         # LRU with their expert (evicted together, refetched on the next
@@ -143,6 +151,43 @@ class ExpertStore:
         if self.cache.last_evicted is not None:
             self._comp_resident.pop(self.cache.last_evicted, None)
 
+    # -- transfer-engine plumbing ------------------------------------------
+    def attach_engine(self, hook):
+        """Attach a transfer-engine hook (``on_demand`` / ``on_factors`` /
+        ``on_prefetch``); pass None to detach."""
+        self._engine = hook
+
+    def note_copy(self, nbytes: int):
+        """Transfer-engine acknowledgement that ``nbytes`` were put on the
+        link for a metering event of this store (counted at copy issue)."""
+        self.observed_copies += 1
+        self.observed_copy_bytes += int(nbytes)
+
+    def absorb_external_copy(self, e: int, nbytes: int,
+                             comp_rank: Optional[int] = None,
+                             comp_bytes: int = 0) -> int:
+        """Meter a copy the engine performed that no demand/compensator
+        event claimed (an optimistic stage the accepted trace never
+        touched): insert the expert so residency matches the container,
+        charge the traffic as prefetch, and acknowledge the copy.
+        Returns the bytes metered (the caller attributes them to
+        ``wasted_prefetch_bytes``)."""
+        e = int(e)
+        moved = 0
+        if nbytes:
+            if self.cache.insert(e, int(nbytes)):
+                self._drop_evicted()
+                moved += int(nbytes)
+        if comp_bytes:
+            have = self._comp_resident.get(e, -1)
+            if have is not None:
+                self._comp_resident[e] = comp_rank
+                moved += int(comp_bytes)
+        if moved:
+            self.prefetch_bytes += moved
+            self.note_copy(moved)
+        return moved
+
     def access_token(self, topk: np.ndarray, top_n: int, policy: str,
                      rank_cap: Optional[int] = None) -> int:
         """Meter one token's expert fetches; returns bytes moved.
@@ -157,6 +202,8 @@ class ExpertStore:
                 continue
             hit = self.cache.access(e, self.expert_bytes(e, policy))
             self._drop_evicted()
+            if not hit and self._engine is not None:
+                self._engine.on_demand(self, e, self.expert_bytes(e, policy))
             if policy == "ours" and rank < top_n:
                 # compensators ride the cache with their expert: fetch
                 # only what is not already resident (a raised cap fetches
@@ -168,6 +215,9 @@ class ExpertStore:
                 held = 0 if have < 0 else self.compensator_bytes(e, have)
                 if need > held:
                     self.comp_bytes_moved += need - held
+                    if self._engine is not None:
+                        self._engine.on_factors(self, e, have, rank_cap,
+                                                need - held)
                 if have < 0 or rank_cap is None or rank_cap > have:
                     self._comp_resident[e] = rank_cap
         return self.total_bytes - before
@@ -188,6 +238,11 @@ class ExpertStore:
             if e in self.cache:
                 self.cache.insert(e, nb)          # refresh LRU position
                 continue
+            if self._engine is not None and not self._engine.on_prefetch(
+                    self, e, nb):
+                # staging ring full: the copy cannot move, so the store
+                # must neither meter it nor warm the LRU with it
+                continue
             self.cache.insert(e, nb)
             self._drop_evicted()
             self.prefetch_bytes += nb
@@ -198,6 +253,7 @@ class ExpertStore:
     def total_bytes(self) -> int:
         return (self.cache.stats.bytes_moved + self.comp_bytes_moved
                 + self.prefetch_bytes)
+
 
 def make_expert_stores(stacks_by_layer: List[Dict], *,
                        cache_capacity: int = 4) -> List[ExpertStore]:
@@ -222,6 +278,11 @@ def snapshot_offload(stores: List[ExpertStore], prefetcher=None) -> Dict:
         "total": sum(s.total_bytes for s in stores),
         "hits": sum(s.cache.stats.hits for s in stores),
         "misses": sum(s.cache.stats.misses for s in stores),
+        # observed transfer-engine copies (0 until streaming is attached);
+        # the oracle pins observed == total per store, so these columns
+        # let reports cross-check metered traffic against real copies
+        "observed": sum(s.observed_copy_bytes for s in stores),
+        "copies": sum(s.observed_copies for s in stores),
         "pf_issued": prefetcher.stats.issued if prefetcher is not None else 0,
         "pf_useful": prefetcher.stats.useful if prefetcher is not None else 0,
     }
@@ -245,14 +306,14 @@ def offload_report(stores: List[ExpertStore], prefetcher, snap: Dict,
         "hit_rate": d["hits"] / max(d["hits"] + d["misses"], 1),
         "prefetch_accuracy": (d["pf_useful"] / max(issued, 1)
                               if prefetcher is not None else None),
-        # the JAX report's expert-parallel and transfer-engine columns, in
-        # their single-link form without a transfer engine (neither is
-        # ported): one link carries every byte, and no copy is observed
+        # the JAX report's expert-parallel columns in their single-link
+        # form (expert-parallel serving is not ported): one link carries
+        # every byte
         "ep": 1,
         "per_shard_bytes": [int(d["total"])],
         "max_shard_bytes_per_token": int(d["total"]) / max(tokens, 1),
-        "observed_copy_bytes": 0,
-        "observed_copies": 0,
+        "observed_copy_bytes": int(d["observed"]),
+        "observed_copies": int(d["copies"]),
     }
 
 

@@ -25,6 +25,16 @@ every accepted token's routing is replayed into the per-layer metered
 ``ExpertStore``s between chunks, and an attached ``BandwidthController``
 turns each chunk's wire bytes into the next chunk's (top_n, rank_cap)
 plan, copied into the decode graph's plan buffer.
+
+With async expert streaming attached (``attach_streaming``) the metered
+bytes are real copies: the MoE layers serve from device containers
+booted from a low-bit fallback, every byte the meter charges is copied
+from a pinned host image into them (``offload/staging.py``), and a chunk
+that routed to an expert not yet staged is either staged and re-run from
+a snapshot of the caches until it matches the all-resident path
+(``miss_policy='block'``) or served by the fallback ('degrade').  The
+containers are written in place, so the decode graphs captured after
+``attach_streaming`` keep reading them.
 """
 from __future__ import annotations
 
@@ -69,6 +79,9 @@ class GenerationResult:
     capture_s: float = 0.0
     # live offload metering (attach_offload): bytes/token, hit rate, ...
     offload_report: Optional[Dict] = None
+    # async streaming engine counters (attach_streaming): overlap
+    # efficiency, stalls, degraded tokens, observed copies, ...
+    stream_report: Optional[Dict] = None
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -119,6 +132,9 @@ class ServeStats:
     # seconds of decode_s spent warming up and capturing the slot
     # bucket's decode graph (0 when an earlier call had captured it)
     capture_s: float = 0.0
+    # async streaming counters (attach_streaming): overlap efficiency,
+    # transfer/stall seconds, degraded tokens, observed copies, ...
+    stream_report: Optional[Dict] = None
 
     def __post_init__(self):
         # zero-token requests carry first_token_s = NaN (an explicit
@@ -231,6 +247,10 @@ class ServeEngine:
                                      exact_capacity=True,
                                      kernel_impl=kernel_impl,
                                      collect_trace=self.collect_router_trace)
+        # prefill with the router trace: streaming stages what it routed to
+        self._prefill_traced_ctx = ExecContext(
+            mode="prefill", quantized=quantized, exact_capacity=True,
+            kernel_impl=kernel_impl, collect_trace=True)
         # resident caches by (batch, cache length)
         self._caches: Dict[Tuple[int, int], Dict] = {}
         # captured decode steps by (batch, cache length, with a plan)
@@ -239,6 +259,7 @@ class ServeEngine:
         self._prefetcher = None
         self._offload_policy = "ours"
         self._controller = None        # BandwidthController
+        self._stream = None            # ExpertStreamEngine (attach_streaming)
 
     @property
     def num_graphs(self) -> int:
@@ -285,20 +306,55 @@ class ServeEngine:
         """(last-token logits (1, V), batch-1 prefilled cache) for one
         request, in the resident (1, ``cache_len``) bucket of the serve
         run."""
-        toks = np.asarray(req.tokens, np.int32).reshape(1, -1)
-        return self._prefill_into(self._pad_prompt(toks), req.prompt_len,
-                                  cache_len)
+        toks = self._pad_prompt(np.asarray(req.tokens,
+                                           np.int32).reshape(1, -1))
+        if self._stream is not None:
+            return self._prefill_streamed(toks, req.prompt_len, cache_len)
+        return self._prefill_into(toks, req.prompt_len, cache_len)
 
-    def _prefill_into(self, padded: np.ndarray, plen: int, cache_len: int):
+    def _prefill_into(self, padded: np.ndarray, plen: int, cache_len: int,
+                      traced: bool = False):
+        """Prefill into the reset (B, ``cache_len``) bucket.  Returns
+        (last-real-token logits, caches), and the (moe_layers, B * T, k)
+        router trace when ``traced``."""
         b = padded.shape[0]
         caches = self._bucket_caches(b, cache_len)
         tokens = torch.as_tensor(padded, device=self.device)
-        out = lm.forward(self.params, tokens, self.cfg, self._prefill_ctx,
-                         caches=caches)
+        out = lm.forward(self.params, tokens, self.cfg,
+                         self._prefill_traced_ctx if traced
+                         else self._prefill_ctx, caches=caches)
         plen_t = torch.full((b,), plen, dtype=torch.int32,
                             device=self.device)
         mask_cache_padding(self.cfg, caches, plen_t)
+        if traced:
+            return out.logits[:, plen - 1], caches, out.trace
         return out.logits[:, plen - 1], caches
+
+    def _prefill_streamed(self, padded: np.ndarray, plen: int,
+                          cache_len: int):
+        """Prefill under streaming: run optimistically on the current
+        containers, stage every expert the prompt's routing touched
+        (padded positions included) that is not yet resident (at the
+        static top_n, full rank), and re-run until the routing is fully
+        served by true weights — so a streamed request's FIRST sampled
+        token already matches the all-resident path.  Prefill always
+        blocks on its stages; a stalled copy degrades the prefill after
+        ``stall_timeout_s`` like any other miss."""
+        eng = self._stream
+        top_n = (self.cfg.moe.quant.top_n_restore
+                 if self.cfg.moe is not None else 0)
+        lg = caches = None
+        for _ in range(eng.cfg.max_reruns + 1):
+            lg, caches, tr = self._prefill_into(padded, plen, cache_len,
+                                                traced=True)
+            needs = eng.missing_for_forward_trace(tr.cpu().numpy(), top_n)
+            if not needs:
+                return lg, caches
+            unresolved = eng.demand_stage(needs)
+            eng.reruns += 1
+            if unresolved:
+                break          # stalled copies: serve this prefill degraded
+        return lg, caches
 
     @torch.no_grad()
     def step(self, tokens: torch.Tensor, caches,
@@ -405,14 +461,24 @@ class ServeEngine:
         defaults to the attached controller's current plan; with expert
         stores attached the decode trace is metered under that plan into
         ``offload_report``, whose bytes feed the controller."""
+        b, plen = prompt_tokens.shape
         t0 = time.perf_counter()
-        logits, caches = self.prefill(prompt_tokens, max_new)
+        if self._stream is not None:
+            padded = self._pad_prompt(np.asarray(prompt_tokens, np.int32))
+            logits, caches = self._prefill_streamed(
+                padded, plen, bucket_len(padded.shape[1] + max_new + 1))
+        else:
+            logits, caches = self.prefill(prompt_tokens, max_new)
         self._sync()
         t_prefill = time.perf_counter() - t0
         if plan is None and self._controller is not None:
             plan = self._current_plan().as_array()
         t1 = time.perf_counter()
-        d = self.decode(logits, caches, max_new, seed, plan)
+        if self._stream is not None:
+            d, _deg = self._run_chunk(logits, caches, max_new, plan,
+                                      np.ones((b,), bool), seed=seed)
+        else:
+            d = self.decode(logits, caches, max_new, seed, plan)
         self._sync()
         t_decode = time.perf_counter() - t1
         trace = None if d.trace is None else d.trace.cpu().numpy()
@@ -425,7 +491,9 @@ class ServeEngine:
         return GenerationResult(
             d.tokens.cpu().numpy(), d.logprobs.cpu().numpy(), t_prefill,
             t_decode, max_new, router_trace=trace, capture_s=d.capture_s,
-            offload_report=report)
+            offload_report=report,
+            stream_report=(self._stream.report()
+                           if self._stream is not None else None))
 
     # -- offload wiring ----------------------------------------------------
     def attach_offload(self, stacks_by_layer: List[Dict],
@@ -453,7 +521,69 @@ class ServeEngine:
                                                     self.cfg.moe.top_k)
         if self.scfg.control.enabled:
             self.attach_controller(self.scfg.control)
+        if self.scfg.stream.enabled:
+            self.attach_streaming()
         return self
+
+    def attach_streaming(self, stream=None, backend=None) -> "ServeEngine":
+        """Turn the metered offload into a real streamed data path.
+
+        The MoE layers' serving stacks are replaced (once) by
+        fallback-initialized device *containers* of the same shapes; an
+        ``ExpertStreamEngine`` copies true expert payloads into them in
+        place from pinned host images, driven by the stores' metering
+        events, with a per-layer ring of async H2D copies on a copy
+        stream for the prefetcher's layer-ahead predictions.  Decode runs
+        optimistically on the current containers and blocks only on a
+        true miss (``StreamConfig.miss_policy='block'``: stage + re-run
+        until the routing is fully served, token-identical to
+        all-resident; ``'degrade'``: accept the chunk served by the
+        resident low-bit fallback and stage in the background).
+
+        Every decode graph captured before this call replays the true
+        stacks, so they are dropped; the graphs captured after it read
+        the containers, and integrations and plan changes never capture
+        again.
+
+        ``stream``: ``StreamConfig`` override (default ``scfg.stream``);
+        ``backend``: transfer backend override (fault injection).
+        Requires ``attach_offload`` on the LIVE serving stacks and an
+        'ours'/'quant' fetch policy."""
+        from ..offload.staging import ExpertStreamEngine
+        stream = stream or self.scfg.stream
+        if self._stores is None:
+            raise ValueError("attach_offload must be called before "
+                             "attach_streaming (the stream engine is "
+                             "driven by its metered stores)")
+        if not self.collect_router_trace:
+            raise ValueError("streaming detects misses from the router "
+                             "trace; collect_router_trace must be on")
+        if self._offload_policy not in ("ours", "quant"):
+            raise ValueError("streaming moves compressed containers; fetch "
+                             f"policy {self._offload_policy!r} unsupported")
+        moe_params = [lp["moe"] for lp in self.params["layers"]
+                      if isinstance(lp.get("moe"), dict)
+                      and "stacks" in lp["moe"]]
+        if len(moe_params) != len(self._stores):
+            raise ValueError(f"{len(moe_params)} compressed MoE layers in "
+                             f"params vs {len(self._stores)} stores")
+        for mp, store in zip(moe_params, self._stores):
+            if mp["stacks"] is not store.stacks:
+                raise ValueError("attach_offload was given stacks that are "
+                                 "not the live serving stacks; streaming "
+                                 "must stage into the containers the "
+                                 "decode graph reads")
+        self._stream = ExpertStreamEngine(self._stores, stream,
+                                          policy=self._offload_policy,
+                                          backend=backend)
+        for li, mp in enumerate(moe_params):
+            mp["stacks"] = self._stream.layer_containers(li)
+        self.graphs.clear()
+        return self
+
+    @property
+    def stream(self):
+        return self._stream
 
     def attach_controller(self, control: ControlConfig) -> "ServeEngine":
         """Close the loop from offload metering to restoration intensity.
@@ -482,15 +612,79 @@ class ServeEngine:
     def _meter_offload(self, trace: np.ndarray, plan=None) -> Dict:
         """Feed decode routing (steps, layers, B, k) into the stores under
         ``plan``'s (moe_layers, 2) [top_n, rank_cap] rows (None: the
-        static top_n, full rank)."""
-        from ..offload.store import meter_decode_trace
+        static top_n, full rank).  Under streaming, staged copies the
+        routing never touched are flushed as wasted prefetch inside the
+        report's window, so the report covers every byte put on the
+        link."""
+        from ..offload.store import (offload_report, replay_decode_trace,
+                                     snapshot_offload)
         arr = None if plan is None else np.asarray(plan, np.int32)
-        return meter_decode_trace(
+        snap = snapshot_offload(self._stores, self._prefetcher)
+        ntok, _ = replay_decode_trace(
             self._stores, trace, policy=self._offload_policy,
             top_n=(self.cfg.moe.quant.top_n_restore if arr is None
                    else arr[:, 0]),
             rank_caps=None if arr is None else arr[:, 1],
             prefetcher=self._prefetcher)
+        if self._stream is not None:
+            self._stream.flush_unclaimed()
+        return offload_report(self._stores, self._prefetcher, snap, ntok,
+                              self._offload_policy)
+
+    # -- streamed decode -----------------------------------------------------
+    def _run_chunk(self, logits: torch.Tensor, caches, steps: int, plan,
+                   active: np.ndarray, seed: int = 0,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[Decoded, int]:
+        """One decode chunk (``decode``) under streaming.
+
+        Warm steady state (``may_miss`` False) decodes untouched.
+        Otherwise the chunk runs optimistically on the current
+        containers from a snapshot of everything the decode writes in
+        place (the caches, the logits it samples from, the generator);
+        on a true miss it either stages and re-runs from the snapshot to
+        a fixpoint (miss_policy 'block': the accepted chunk is
+        token-identical to all-resident) or accepts the fallback-served
+        chunk and stages asynchronously for later chunks ('degrade').
+        Returns (the ``Decoded`` chunk, its degraded token count)."""
+        eng = self._stream
+        eng.integrate_ready()
+        top_ns, caps = eng.plan_vectors(
+            len(self._stores), plan,
+            self.cfg.moe.quant.top_n_restore if self.cfg.moe else 0)
+        if not eng.may_miss(top_ns, caps):
+            return self.decode(logits, caches, steps, seed, plan,
+                               generator), 0
+        tensors = [t for c in caches["layers"] for t in c.values()] \
+            + [caches["pos"], logits]
+        snap = [t.clone() for t in tensors]
+        gen_state = None if generator is None else generator.get_state()
+        out = needs = None
+        for attempt in range(eng.cfg.max_reruns + 1):
+            if attempt:
+                for t, s in zip(tensors, snap):
+                    t.copy_(s)
+                if generator is not None:
+                    generator.set_state(gen_state)
+            out = self.decode(logits, caches, steps, seed, plan, generator)
+            tr = out.trace.cpu().numpy()
+            needs = eng.missing_for_trace(tr, active, top_ns, caps)
+            if not needs:
+                return out, 0
+            if eng.cfg.miss_policy == "degrade":
+                eng.stage_async(needs)
+                break
+            unresolved = eng.demand_stage(needs)
+            eng.reruns += 1
+            if unresolved:
+                bad = set(unresolved)
+                needs = [n for n in needs if (n[0], n[1]) in bad]
+                break
+        degraded = eng.count_affected_tokens(
+            out.trace.cpu().numpy(), active,
+            [(l, e) for (l, e, _w, _f) in needs])
+        eng.degraded_tokens += degraded
+        return out, degraded
 
     def _claim(self, caches, req_caches, logits: torch.Tensor,
                req_logits: torch.Tensor, slot: int) -> None:
@@ -590,10 +784,14 @@ class ServeEngine:
                 prefill_s += time.perf_counter() - tp
 
             plan = self._current_plan()
+            plan_arr = None if plan is None else plan.as_array()
             td = time.perf_counter()
-            d = self.decode(logits, caches, chunk,
-                            plan=None if plan is None else plan.as_array(),
-                            generator=gen)
+            if self._stream is not None:
+                d, _deg = self._run_chunk(logits, caches, chunk, plan_arr,
+                                          sched.active_mask(), generator=gen)
+            else:
+                d = self.decode(logits, caches, chunk, plan=plan_arr,
+                                generator=gen)
             logits = d.logits
             capture_s += d.capture_s
             toks = d.tokens.cpu().numpy()                # (S, chunk)
@@ -626,6 +824,12 @@ class ServeEngine:
                     prefetcher=self._prefetcher)
                 metered_tokens += ntok
                 sched.add_slot_bytes(slot_bytes, uid_map)
+                if self._stream is not None:
+                    # staged copies the accepted routing never touched
+                    # become wasted prefetch THIS chunk, so the
+                    # controller's `moved` sees every byte the chunk put
+                    # on the link
+                    self._stream.flush_unclaimed()
                 if self._controller is not None:
                     # chunk boundary: the chunk's wire bytes (demand +
                     # compensator + prefetch) close the control loop
@@ -645,7 +849,9 @@ class ServeEngine:
             router_trace=np.concatenate(traces) if traces else None,
             plan_trace=np.stack(plans) if plans else None,
             cache_hbm_bytes=cache_hbm, prefill_tokens=prefill_tok,
-            meter_s=meter_s, capture_s=capture_s)
+            meter_s=meter_s, capture_s=capture_s,
+            stream_report=(self._stream.report()
+                           if self._stream is not None else None))
 
     def generate_many(self, prompts: Sequence[np.ndarray],
                       max_new: int = 32, *,

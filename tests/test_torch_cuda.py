@@ -798,3 +798,177 @@ def test_serve_graph_matches_eager_on_ragged_workload(dev):
     np.testing.assert_array_equal(runs[True][1].plan_trace,
                                   runs[False][1].plan_trace)
     assert len({p.tobytes() for p in runs[True][1].plan_trace}) > 1
+
+
+# ---------------------------------------------------------------------------
+# async expert streaming on the card
+# ---------------------------------------------------------------------------
+
+def _own_moe_params(qp):
+    """``qp`` with its own layer and MoE dicts (the same stacks):
+    ``attach_streaming`` replaces the MoE dicts' stacks with its
+    containers, which must not reach the shared ``_served`` params."""
+    return {**qp, "layers": [dict(lp, moe=dict(lp["moe"])) if "moe" in lp
+                             else lp for lp in qp["layers"]]}
+
+
+def _streamed(policy="block", cap=8):
+    from repro_torch.config import StreamConfig
+    from repro_torch.serve.engine import ServeEngine
+    cfg, qp = _served("moe")
+    own = _own_moe_params(qp)
+    stacks = [lp["moe"]["stacks"] for lp in own["layers"] if "moe" in lp]
+    eng = ServeEngine(cfg, own, quantized=True)
+    eng.attach_offload(stacks, cache_capacity=cap)
+    eng.attach_streaming(StreamConfig(enabled=True, miss_policy=policy))
+    return eng, stacks
+
+
+def test_stream_host_image_is_pinned(dev):
+    """Every layer's host image (and so every payload) is pinned memory;
+    the containers are the engine's MoE stacks, on the card."""
+    eng, stacks = _streamed()
+    for li, L in enumerate(eng.stream.layers):
+        assert L.image.buffer.is_pinned()
+        assert L.image.weight_payload(0).data.is_pinned()
+        assert L.image.host_nbytes > 0
+        assert all(st.scale.is_cuda for st in L.containers.values())
+        assert L.containers is not stacks[li]
+
+
+def test_stream_ring_copies_run_on_a_copy_stream(dev):
+    """A ring copy is issued on the backend's own (non-default) stream
+    and its slot turns READY exactly when the copy's event has fired:
+    held back behind a spin on the copy stream, it stays IN_FLIGHT."""
+    eng, _ = _streamed()
+    backend = eng.stream.backend
+    assert backend.stream.cuda_stream != \
+        torch.cuda.default_stream(dev).cuda_stream
+    L = eng.stream.layers[0]
+    with torch.cuda.stream(backend.stream):
+        torch.cuda._sleep(200_000_000)          # ~0.1 s at 2 GHz
+    slot = L.ring.try_issue(3, L.image.weight_payload(3), 1)
+    L.ring.poll()
+    assert slot.state == "in_flight" and not slot.handle.event.query()
+    backend.stream.synchronize()
+    L.ring.poll()
+    assert slot.state == "ready" and slot.handle.event.query()
+    eng.stream.integrate_ready(0)
+    assert slot.state == "free" and 3 in L.valid
+    torch.cuda.synchronize()
+    for name, st in L.containers.items():
+        assert torch.equal(st.scale[3], eng._stores[0].stacks[name].scale[3])
+
+
+def test_stream_graph_reads_containers_in_place(dev):
+    """Payloads integrated between two replays of one captured decode
+    step (ring copies through ``integrate_ready``, then demand copies)
+    change what the replay computes, with no new capture; once every
+    expert's weights and factors are in, the replay equals the resident
+    engine's eager step on the true stacks."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.offload.staging import _NO_FACTORS
+    eng, stacks = _streamed()
+    cfg, qp = _served("moe")
+    ref = ServeEngine(cfg, qp, quantized=True, decode_graph=False)
+    prompts = _prompts(cfg, 2, 9)
+    logits, caches = eng.prefill(prompts, 4)
+    eng.decode(logits, caches, 1)                # captures the step
+    assert eng.num_graphs == 1
+    g = next(iter(eng.graphs.values()))
+    r_logits, r_caches = ref.prefill(prompts, 4)
+    tok = torch.argmax(r_logits, dim=-1).to(torch.int32)
+    want = ref.step(tok, {"layers": [{k: t.clone() for k, t in c.items()}
+                                     for c in r_caches["layers"]],
+                          "pos": r_caches["pos"].clone()}).logits
+
+    def replay():
+        for c, r in zip(caches["layers"], r_caches["layers"]):
+            for k in c:
+                c[k].copy_(r[k])
+        caches["pos"].copy_(r_caches["pos"])
+        g.tokens.copy_(tok)
+        g.graph.replay()
+        return g.logits.clone()
+
+    before = replay()
+    se = eng.stream
+    n_moe = len(stacks)
+    se.stage_async([(l, e, True, _NO_FACTORS) for l in range(n_moe)
+                    for e in range(2)])
+    se.backend.stream.synchronize()
+    se.integrate_ready()
+    assert all({0, 1} <= L.valid for L in se.layers)
+    ring = replay()
+    assert not torch.equal(ring, before)
+    assert not se.demand_stage([(l, e, True, None) for l in range(n_moe)
+                                for e in range(8)])
+    full = replay()
+    assert eng.num_graphs == 1
+    torch.testing.assert_close(full, want, rtol=1e-5, atol=1e-5)
+
+
+def test_graph_captured_before_streaming_is_dropped(dev):
+    """A decode graph captured over the true stacks is never replayed
+    after ``attach_streaming``: the engine drops it, captures once over
+    the containers, and block-mode tokens equal the resident ones."""
+    from repro_torch.config import StreamConfig
+    from repro_torch.serve.engine import ServeEngine
+    cfg, qp = _served("moe")
+    own = _own_moe_params(qp)
+    stacks = [lp["moe"]["stacks"] for lp in own["layers"] if "moe" in lp]
+    eng = ServeEngine(cfg, own, quantized=True)
+    prompts = _prompts(cfg, 2, 9)
+    a = eng.generate(prompts, 6)
+    old = list(eng.graphs.values())
+    assert len(old) == 1
+    eng.attach_offload(stacks, cache_capacity=8)
+    eng.attach_streaming(StreamConfig(enabled=True))
+    assert eng.num_graphs == 0
+    b = eng.generate(prompts, 6)
+    assert eng.num_graphs == 1
+    assert not any(g is old[0] for g in eng.graphs.values())
+    assert b.stream_report["reruns"] > 0
+    _assert_same_generation(a, b)
+
+
+@pytest.mark.parametrize("cap", [8, 3])
+def test_streamed_block_serve_equals_resident_on_card(dev, cap):
+    """``serve`` of a ragged workload streamed under 'block' (LRU ``cap``
+    of 8, through the plan graph) gives the resident engine's tokens and
+    traces; every store's metered bytes equal its copies' bytes; then a
+    serve under a budget changes the plan between chunks: one graph is
+    captured across every integration and plan change."""
+    from repro_torch.config import ControlConfig
+    from repro_torch.serve import ServeEngine, synthetic_workload
+    cfg, qp = _served("moe")
+    stacks = [lp["moe"]["stacks"] for lp in qp["layers"] if "moe" in lp]
+
+    def workload():
+        return synthetic_workload(7, cfg.vocab_size, max_new=8, min_len=5,
+                                  max_len=60, seed=4)
+
+    # no budget: the plan stays at the static point on both engines
+    res = ServeEngine(cfg, qp, quantized=True)
+    res.attach_offload(stacks, cache_capacity=cap)
+    res.attach_controller(ControlConfig(enabled=True))
+    want = res.serve(workload(), num_slots=4, chunk=4)
+    eng, _ = _streamed(cap=cap)
+    eng.attach_controller(ControlConfig(enabled=True))
+    got = eng.serve(workload(), num_slots=4, chunk=4)
+    for ra, rb in zip(want.results, got.results):
+        np.testing.assert_array_equal(ra.tokens, rb.tokens)
+        np.testing.assert_array_equal(ra.trace, rb.trace)
+    for s in eng._stores:
+        assert s.total_bytes == s.observed_copy_bytes > 0
+    sr = got.stream_report
+    assert sr["degraded_tokens"] == 0 and sr["issued_copies"] > 0
+    assert eng.num_graphs == 1
+    eng.attach_controller(ControlConfig(
+        enabled=True,
+        bytes_per_token=0.5 * got.offload_report["bytes_per_token"]))
+    budget = eng.serve(workload(), num_slots=4, chunk=4)
+    assert len({p.tobytes() for p in budget.plan_trace}) > 1
+    assert eng.num_graphs == 1
+    for s in eng._stores:
+        assert s.total_bytes == s.observed_copy_bytes

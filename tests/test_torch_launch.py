@@ -4,7 +4,8 @@ compress → artifact) and ``repro_torch.launch.serve --offload --artifact``
 booting that artifact.  Serving from the artifact must give the tokens,
 router trace, offload report and per-request bytes of serving the
 stacks ``compress.run`` returned in memory; the flags of the JAX CLI's
-unported paths raise ``NotImplementedError`` naming their ROADMAP item.
+unported paths raise ``NotImplementedError`` naming their ROADMAP item;
+the stream flags serve with every metered byte copied.
 """
 import json
 
@@ -101,10 +102,6 @@ def test_serve_cli_fixed_batch_and_in_memory_offload(capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "ep=4"], "A13"),
     (["--budget-scope", "per_shard"], "A13"),
-    (["--stream"], "A10"),
-    (["--stream-miss", "degrade"], "A10"),
-    (["--stream-ring", "3"], "A10"),
-    (["--stream-fallback-bits", "4"], "A10"),
     (["--page-size", "16"], "A9"),
     (["--prefix-cache"], "A9"),
     (["--spec-k", "2"], "A11"),
@@ -114,6 +111,44 @@ def test_unported_flags_name_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2"]
                    + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--stream"],
+    ["--stream", "--stream-miss", "degrade"],
+    ["--stream", "--stream-ring", "3"],
+    ["--stream", "--stream-fallback-bits", "4"],
+])
+def test_serve_cli_stream_flags_run(flags, capsys):
+    """Each stream flag serves (reduced Mixtral-8x7B, LRU 3 of 8): every
+    store's metered bytes equal the bytes its copies put on the link,
+    the flag reaches the stream engine, and the CLI prints JAX's
+    ``stream (...)`` line."""
+    got = serve.main(["--arch", ARCH, "--device", "cpu", "--offload",
+                      "--requests", "3", "--slots", "2", "--chunk", "2",
+                      "--max-new", "3", "--prompt-len", "12",
+                      "--cache-experts", "3"] + flags)
+    eng, sr = got["engine"], got["stats"].stream_report
+    assert sr is not None and sr["issued_copies"] > 0
+    for s in eng._stores:
+        assert s.total_bytes == s.observed_copy_bytes > 0
+    want = {"--stream-miss": ("miss_policy", "degrade"),
+            "--stream-ring": ("ring_slots", 3),
+            "--stream-fallback-bits": ("fallback_bits", 4)}
+    key, val = want.get(flags[-2] if len(flags) > 1 else "",
+                        ("miss_policy", "block"))
+    assert sr[key] == val
+    if sr["miss_policy"] == "block":
+        assert sr["degraded_tokens"] == 0
+    text = capsys.readouterr().out
+    assert f"stream ({sr['miss_policy']}, ring {sr['ring_slots']})" in text
+    assert "MiB observed ==" in text
+
+
+def test_serve_cli_stream_needs_offload():
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
+                    "--stream"])
 
 
 def test_clis_default_to_cuda(monkeypatch, tmp_path):

@@ -72,11 +72,21 @@ def _check_config_copy(jcfg, tcfg):
 
 def test_serve_and_control_config_copies_match_jax():
     """``ControlConfig`` is a copy without ``budget_scope`` (it budgets
-    expert-parallel serving, not ported); ``ServeConfig`` keeps a subset
-    of the JAX fields, each with the JAX default (``control`` included)."""
+    expert-parallel serving, not ported); ``StreamConfig`` is a copy
+    (fields, defaults, asserts); ``ServeConfig`` keeps a subset of the
+    JAX fields, each with the JAX default (``control`` and ``stream``
+    included)."""
     from repro.config import ControlConfig as JControlConfig
     from repro.config import ServeConfig as JServeConfig
-    from repro_torch.config import ControlConfig, ServeConfig
+    from repro.config import StreamConfig as JStreamConfig
+    from repro_torch.config import ControlConfig, ServeConfig, StreamConfig
+    assert [(f.name, f.default) for f in dataclasses.fields(StreamConfig)] \
+        == [(f.name, f.default) for f in dataclasses.fields(JStreamConfig)]
+    for bad in (dict(miss_policy="drop"), dict(ring_slots=0)):
+        with pytest.raises(AssertionError):
+            JStreamConfig(**bad)
+        with pytest.raises(AssertionError):
+            StreamConfig(**bad)
     assert [f.name for f in dataclasses.fields(ControlConfig)] == \
         [f.name for f in dataclasses.fields(JControlConfig)
          if f.name != "budget_scope"]
@@ -88,7 +98,7 @@ def test_serve_and_control_config_copies_match_jax():
         JControlConfig(**cc).target_bytes_per_token
     kept = {f.name for f in dataclasses.fields(ServeConfig)}
     assert kept == {"temperature", "eos_id", "cache_experts", "num_slots",
-                    "chunk_steps", "control"}
+                    "chunk_steps", "control", "stream"}
     port, jax_ = dataclasses.asdict(ServeConfig()), \
         dataclasses.asdict(JServeConfig())
     jax_["control"].pop("budget_scope")
