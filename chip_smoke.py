@@ -13,7 +13,10 @@ Phases:
                 (kernel 1 at DeepSeek's E 64, top-6 dispatch and pad_rank
                 1024, and at Qwen3's E 128, top-8, experts at 2..8 bits in
                 one container, on both main-kernel paths, against the
-                plain version in f64; flash-decode at Qwen3's G 8)
+                plain version in f64; flash-decode at Qwen3's G 8;
+                flash-decode's block-table mode against gather + the
+                contiguous kernel, bit for bit, at Mixtral's, DeepSeek's
+                and Qwen3's shapes)
   3. slice      Mixtral-8x7B at its published widths, depth cut to 2
                 layers, random f32 weights from a seeded generator:
                 compress on the card, ``ServeEngine.generate`` through
@@ -31,7 +34,9 @@ Phases:
                 its bounds, and both paths at smaller C (the crossover
                 FUSED_MMA_MIN_C rests on); flash-decode at the slice's
                 S 512 and at long context (S 4096, 32768) for each cache
-                type, beside its byte bound, its rate and SDPA
+                type, beside its byte bound, its rate and SDPA; its
+                block-table mode at S 512 and 32768 against the
+                contiguous call at the same S and against gather + kernel
   5. dense      Llama-3.2-3B at its published config (28 layers, dense
                 FFNs compressed to E = 1 stacks): the same as phase 3
                 (graph against eager, the profiles, teacher-forced),
@@ -94,6 +99,22 @@ Phases:
                 efficiency, re-runs, pin seconds, MemAvailable, peak
                 device memory; then pinned H2D copy rates (one expert
                 payload, 1 GiB)
+ 11. paged      the paged KV cache, run right after phase 10 on phase 8's
+                engines (before phase 9): Mixtral-8x7B (f32, 2 layers),
+                phase 8's ragged workload paged at page 16 against the
+                contiguous cache (tokens, traces and metered bytes equal
+                but for a first divergence at an f32 near-tie; one
+                capture for the paged envelope, none for a second
+                workload in it; no page leaked; a smaller cache), then
+                paged under streaming 'block' at LRU 3 equal to the
+                resident paged serve; DeepSeek-MoE-16B (bf16, 28 layers),
+                phase 8's 16 requests paged against phase 8's run (a bf16
+                near-tie protocol), then 16 requests sharing a 256-token
+                system prompt with prefix reuse off and on (prefill
+                tokens, hit rate, peak shared ref, TTFT), one admission's
+                full and suffix prefill profiled, and ``simulate_decode``
+                on the served trace under the paper's profiles and the
+                measured per-copy link rate (the ``projection`` line)
 
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -525,6 +546,7 @@ def kernel_phase(dev):
     for S, fills in ((512, [0, 17, 289, 512]), (1024, [41, 301, 701, 1001])):
         flash_cases += [(4, 32, 4, 128, S, filled, ("f32", "bf16"), (None,))
                         for filled in (288, fills)]
+    errs["flash_decode_attention"] = paged_kernel_cases(dev, gen)
     for B, H, KVH, hd, S, filled, kinds, windows in flash_cases:
         for kind in kinds:
             ring = filled == "ring"
@@ -547,6 +569,105 @@ def kernel_phase(dev):
             del args, got, ref
             torch.cuda.empty_cache()
     return errs
+
+
+def paged_flash_inputs(gen, dev, B, H, KVH, hd, PS, MB, kind="f32",
+                       fills=None):
+    """Random paged flash-decode arguments (q, k_pool, v_pool, pos_pool,
+    block, cur, k_scale, v_scale) over a pool of pages in random physical
+    order: with ``fills`` None (B 4), row 0 maps every block (its last
+    page partly filled), row 1 shares row 0's leading third and owns a
+    shorter span, row 2 maps nothing, row 3 every other block (-1
+    between); with ``fills`` (one count per row), each row maps the pages
+    its count needs, positions 0..count-1.  The trash page 0 holds finite
+    garbage (rows, scales, positions)."""
+    q = torch.randn((B, H, hd), generator=gen, device=dev) / math.sqrt(hd)
+    block = torch.full((B, MB), -1, dtype=torch.int32)
+    perm = torch.randperm(B * MB + 4, generator=torch.Generator()
+                          .manual_seed(B * MB + PS)).to(torch.int32) + 1
+    if fills is None:
+        third = MB // 3
+        own = (MB - third) // 2
+        block[0] = perm[:MB]
+        block[1, :third] = perm[:third]
+        block[1, third:third + own] = perm[MB:MB + own]
+        block[3, ::2] = perm[2 * MB:2 * MB + (MB + 1) // 2]
+        fills = [MB * PS - PS // 2 - 1, (third + own) * PS - 1, 0, MB * PS]
+    else:
+        used = 0
+        for r, f in enumerate(fills):
+            n = -(-f // PS)
+            block[r, :n] = perm[used:used + n]
+            used += n
+    P = int(perm.max()) + 1
+    k = torch.randn((P, PS, KVH, hd), generator=gen, device=dev)
+    v = torch.randn((P, PS, KVH, hd), generator=gen, device=dev)
+    pos = torch.full((P, PS), -1, dtype=torch.int32)
+    pos[0] = torch.randint(0, MB * PS, (PS,), dtype=torch.int32)
+    for r in range(B):
+        for j in torch.nonzero(block[r] >= 0)[:, 0].tolist():
+            lp = j * PS + torch.arange(PS, dtype=torch.int32)
+            pos[block[r, j]] = torch.where(lp < fills[r], lp, -1)
+    cur = torch.tensor([max(f, 11) - 1 for f in fills], dtype=torch.int32,
+                       device=dev)
+    ks = vs = None
+    if kind == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    elif kind == "int8":
+        from repro_torch.models.kvcache import _kv_quant
+        k, ks = _kv_quant(k)
+        v, vs = _kv_quant(v)
+    return q, k, v, pos.to(dev), block.to(dev), cur, ks, vs
+
+
+def gathered(args):
+    """The contiguous arguments of a paged call: each row's view gathered
+    from the pool (``paged_gather``, the plain route's first half)."""
+    from repro_torch.models.kvcache import paged_gather
+    q, k, v, pos, block, cur, ks, vs = args
+    cache = {"k": k, "v": v, "pos": pos, "block": block}
+    if ks is not None:
+        cache["k_scale"], cache["v_scale"] = ks, vs
+    kf, vf, pf, ksf, vsf = paged_gather(cache)
+    return q, kf, vf, pf, cur, ksf, vsf
+
+
+def paged_kernel_cases(dev, gen) -> float:
+    """Flash-decode's block-table mode against gather + the contiguous
+    kernel (bit for bit: same logical S, same tiling) and against the
+    plain route (DECODE_TOL), at Mixtral's G 4 f32 (page sizes 8, 16, 32;
+    int8 at 16; a window), DeepSeek-MoE's G 1 bf16 and Qwen3-MoE's G 8
+    f32 and bf16 (page 16), over pages in random order, a page mapped by
+    two rows, -1 entries, a row with none mapped and a garbage trash
+    page; then three kv heads on one-slot pages (int8 scale words at odd
+    offsets).  Returns the largest |kernel - plain|."""
+    from repro_torch.kernels import decode_attention as fd
+    cases = [(32, 8, ps, "f32", None) for ps in (8, 16, 32)]
+    cases += [(32, 8, 16, "int8", None), (32, 8, 16, "f32", 300),
+              (16, 16, 16, "bf16", None), (16, 16, 16, "bf16", 300),
+              (32, 4, 16, "f32", None), (32, 4, 16, "bf16", None),
+              (3, 3, 1, "int8", None), (3, 3, 1, "int8", 40)]
+    worst = 0.0
+    for H, KVH, PS, kind, window in cases:
+        S = 96 if PS == 1 else 1024
+        args = paged_flash_inputs(gen, dev, 4, H, KVH, 128, PS, S // PS,
+                                  kind)
+        got = fd.flash_decode_attention_paged(*args, window=window,
+                                              require_kernel=True)
+        want = fd.flash_decode_attention(*gathered(args), window=window,
+                                         require_kernel=True)
+        name = (f"flash_decode paged B=4 H={H} KVH={KVH} hd=128 page={PS} "
+                f"blocks={S // PS} kv={kind} window={window}")
+        if not torch.equal(got, want):
+            fail(f"{name}: block-table mode differs from gather + kernel "
+                 f"(max |diff| {float((got - want).abs().max()):.3e})")
+        mx = allclose_report(name, got, fd.flash_decode_attention_paged_plain(
+            *args, window=window), **DECODE_TOL)
+        worst = max(worst, mx)
+        log(f"  ok  {name}: == gather + kernel bit for bit; vs plain "
+            f"max|diff| {mx:.3e}")
+        del args, got, want
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1055,6 +1176,62 @@ def flash_long_timing(dev, gen, flush) -> dict:
     return out
 
 
+def paged_bytes_ops(args, flat):
+    """Least bytes and operations of one paged flash-decode call (``args``;
+    ``flat``: its gathered view): ``flash_bytes_ops`` of the view, with
+    the positions of the mapped pages and the block table read in place
+    of one position per logical slot."""
+    q, k, _, _, block, cur, ks, _ = args
+    nb, ops = flash_bytes_ops(q, flat[1], flat[3], cur, ks)
+    mapped = int((block >= 0).sum()) * k.shape[1]
+    return nb - 4 * flat[3].numel() + 4 * mapped + 4 * block.numel(), ops
+
+
+def flash_paged_timing(dev, gen, flush) -> dict:
+    """Flash-decode's block-table mode at Mixtral's shape (B 4, H 32, KVH
+    8, hd 128, f32, page 16, each row's pages in random order) at S 512
+    (288 valid) and S 32768 (all valid): the paged call, the contiguous
+    call on the same rows at the same S (the gathered view), and gather +
+    contiguous kernel, beside the byte bound of what the paged call must
+    read.  Returns the kernels line's paged keys."""
+    from repro_torch.kernels import decode_attention as fd
+    out = {}
+    for S, filled in ((512, 288), (32768, 32768)):
+        args = paged_flash_inputs(gen, dev, 4, 32, 8, 128, 16, S // 16,
+                                  "f32", fills=[filled] * 4)
+        flat = gathered(args)
+        pt = time_ms(lambda: fd.flash_decode_attention_paged(
+            *args, require_kernel=True), 10, flush)
+        ct = time_ms(lambda: fd.flash_decode_attention(
+            *flat, require_kernel=True), 10, flush)
+        gt = time_ms(lambda: fd.flash_decode_attention(
+            *gathered(args), require_kernel=True), 10, flush)
+        plt = time_ms(lambda: fd.flash_decode_attention_paged_plain(*args),
+                      10, flush)
+        got = fd.flash_decode_attention_paged(*args, require_kernel=True)
+        if not torch.equal(got, fd.flash_decode_attention(
+                *flat, require_kernel=True)):
+            fail(f"flash_decode paged S={S}: differs from the contiguous "
+                 "call on the gathered view")
+        nb, ops = paged_bytes_ops(args, flat)
+        bms, by = bound(nb, ops)
+        ms = _ms(f"flash_decode paged S={S}", pt)
+        log(f"  flash_decode paged B=4 H=32 KVH=8 hd=128 page=16 S={S} "
+            f"valid={filled} f32: paged {_fmt(pt)}, {nb / ms / 1e6:.1f} "
+            f"GB/s ({100 * bms / ms:.1f}% of the bound); contiguous at the "
+            f"same S {_fmt(ct)}; gather + kernel {_fmt(gt)}; plain route "
+            f"(gather + plain version) {_fmt(plt)}; bound {bms:.4f} ms "
+            f"({by}; {nb / 1e6:.2f} MB)")
+        keys = dict(ms=ms, bound_ms=bms, gather_ms=_ms("gather", gt),
+                    contiguous_ms=_ms("contiguous", ct),
+                    plain_ms=_ms("paged plain", plt))
+        pre = "paged_" if S == 512 else "paged_long_"
+        out.update({pre + k: v for k, v in keys.items()})
+        del args, flat, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def fused_crossover(dev, gen, st, cfg, flush, proj):
     """One fused projection on dispatch-like inputs (C = T tokens, top-k of
     E experts) on both main-kernel paths: {T: {path: device ms}}, the
@@ -1196,6 +1373,8 @@ def timing_phase(dev, sl):
             f"by size (cudaOccupancyMaxActiveClusters) " + ", ".join(
                 f"{cl}: {cap(cl)}" for cl in fd.CLUSTERS) + f"; {sms} SMs")
     table["flash_decode_attention"].update(flash_long_timing(dev, gen, flush))
+    table["flash_decode_attention"].update(flash_paged_timing(dev, gen,
+                                                              flush))
     return table
 
 
@@ -2092,7 +2271,316 @@ def stream_deepseek(dev, ds, resident, counters) -> dict:
     del eng, backend
     gc.collect()
     torch.cuda.empty_cache()
+    return {"launches": launches, "eager_launches": {},
+            "link_gbs": link1[0] / max(link1[1], 1e-12) / 1e9}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the paged KV cache (run after phase 10 on phase 8's engines,
+# before phase 9)
+# ---------------------------------------------------------------------------
+
+def paged_divergence(name: str, a, b, tol: float, relative: bool) -> dict:
+    """Requests of two serve runs of one workload whose tokens or traces
+    differ: each must first differ at a step where the two runs' chosen
+    tokens were near-tied, i.e. where each run's probability of its own
+    (greedy) token agrees with the other's within ``tol`` (``relative``:
+    ``tol`` times the larger).  At a genuine near-tie the two runs' top
+    probabilities agree to rounding; a real fault moves them apart.
+    Returns {uid: first differing step}."""
+    first = {}
+    for x, y in zip(a.results, b.results):
+        n = min(len(x.tokens), len(y.tokens))
+        bad = np.nonzero((x.tokens[:n] != y.tokens[:n])
+                         | (x.trace[:n] != y.trace[:n]).any(axis=(1, 2)))[0]
+        if len(x.tokens) != len(y.tokens) and not bad.size:
+            bad = np.array([n])
+        if not bad.size:
+            continue
+        t = int(bad[0])
+        pa = math.exp(float(x.logprobs[min(t, len(x.tokens) - 1)]))
+        pb = math.exp(float(y.logprobs[min(t, len(y.tokens) - 1)]))
+        lim = tol * max(pa, pb) if relative else tol
+        if abs(pa - pb) > lim:
+            fail(f"{name}: request {x.uid} first differs at step {t} with "
+                 f"p {pa:.6f} against {pb:.6f}: no near-tie (limit "
+                 f"{lim:.2e})")
+        first[x.uid] = t
+    return first
+
+
+def cache_line(name: str, st, base=None) -> None:
+    pr = st.page_report
+    log(f"  {name}: cache {st.cache_hbm_bytes / 1e6:.2f} MB "
+        f"({st.cache_hbm_bytes_per_token / 1e6:.4f} MB/token)"
+        + ("" if base is None else
+           f", {st.cache_hbm_bytes / base.cache_hbm_bytes:.4f} of the "
+           f"contiguous run's {base.cache_hbm_bytes / 1e6:.2f} MB")
+        + f"; {st.prefill_tokens} prefill tokens"
+        + ("" if pr is None else
+           f"; pages ({pr['num_pages']}x{pr['page_size']}): {pr['allocs']} "
+           f"allocs, prefix hit {pr['prefix_hit_rate']:.4f} "
+           f"({pr['prefix_hits']}/{pr['prefix_queries']}), peak shared ref "
+           f"{pr['peak_shared_ref']}, peak live {pr['peak_live']}, "
+           f"{pr['evictions']} evictions"))
+
+
+def same_bytes(a, b) -> bool:
+    return (a.offload_report == b.offload_report
+            and [r.offload_bytes for r in a.results]
+            == [r.offload_bytes for r in b.results])
+
+
+def paged_mixtral(dev, mx, counters) -> dict:
+    """Phase 3's Mixtral-8x7B (f32, 2 layers): phase 8's ragged workload
+    served contiguous and paged (page 16) at LRU 3 of 8: tokens, traces
+    and metered bytes equal (a first divergence only at an f32 near-tie),
+    one capture for the paged envelope, a second ragged workload in the
+    same envelope capturing none, no page leak, a smaller cache; then
+    the paged serve under streaming 'block' at LRU 3 equal to the
+    resident paged serve."""
+    import dataclasses
+    from repro_torch.config import StreamConfig
+    from repro_torch.serve import ServeEngine, synthetic_workload
+    eng, stacks, cfg = mx["engine"], mx["stacks"], mx["cfg"]
+
+    def workload():
+        return synthetic_workload(12, cfg.vocab_size, max_new=24, min_len=16,
+                                  max_len=300, seed=5)
+
+    def run(e, reqs, **kw):
+        e.attach_offload(stacks, policy="ours", cache_capacity=3)
+        e._controller = None
+        return e.serve(reqs, num_slots=4, chunk=8, **kw)
+
+    run(eng, workload())        # captures the contiguous no-plan graph
+    base = run(eng, workload())
+    g0 = eng.num_graphs
+    for c in counters.values():
+        c.reset()
+    paged = run(eng, workload(), page_size=16)
+    launches = {n: c.n for n, c in counters.items()}
+    g1 = eng.num_graphs
+    warm = run(eng, workload(), page_size=16)
+    if not same_serve(paged, warm, plans=False):
+        fail("mixtral paged: two paged runs of one workload differ")
+    parted = paged_divergence("mixtral paged", base, paged, NEAR_TIE, False)
+    if not parted and not same_bytes(base, paged):
+        fail("mixtral paged: equal tokens and traces, metered bytes differ")
+    if g1 - g0 != 1:
+        fail(f"mixtral paged captured {g1 - g0} graphs, expected 1")
+    if not paged.cache_hbm_bytes < base.cache_hbm_bytes:
+        fail(f"mixtral paged cache {paged.cache_hbm_bytes} B not below the "
+             f"contiguous {base.cache_hbm_bytes} B")
+    eng._page_pool.check_leaks()
+    rng = np.random.default_rng(6)
+    other = [dataclasses.replace(r, tokens=rng.integers(
+        2, cfg.vocab_size, (r.prompt_len,)).astype(np.int32))
+        for r in workload()]
+    second = run(eng, other, page_size=16)
+    eng._page_pool.check_leaks()
+    if eng.num_graphs != g1:
+        fail("mixtral paged: a second workload in the same envelope "
+             "captured again")
+    if second.cache_hbm_bytes != paged.cache_hbm_bytes:
+        fail("mixtral paged: the second workload's envelope differs")
+    log(f"  mixtral paged (12 requests, prompts 16..300, 24 new, 4 slots, "
+        f"chunk 8, page 16, LRU 3 of 8): "
+        + ("tokens, traces and metered bytes equal the contiguous run's"
+           if not parted else f"requests part at near-ties: {parted}")
+        + f"; graphs {g0} -> {g1} (key "
+        f"{[k for k in eng.graphs if len(k) == 5]}), a second ragged "
+        f"workload in the envelope captured none; no page leaked; wrapper "
+        f"launches {launches}")
+    serve_line("mixtral contiguous (warm)", base)
+    serve_line("mixtral paged (capturing)", paged)
+    serve_line("mixtral paged (warm)", warm)
+    cache_line("mixtral contiguous", base)
+    cache_line("mixtral paged", paged, base)
+
+    se = ServeEngine(cfg, own_moe_params(eng.params), quantized=True,
+                     device=dev)
+    se.attach_offload(stacks, policy="ours", cache_capacity=3)
+    backend = timed_backend(dev)
+    se.attach_streaming(StreamConfig(enabled=True), backend=backend)
+    st = se.serve(workload(), num_slots=4, chunk=8, page_size=16)
+    link = backend.take()
+    if not same_tokens_traces(st, paged):
+        fail("mixtral paged stream: tokens or traces differ from the "
+             "resident paged serve")
+    check_oracle("mixtral paged stream", se, st)
+    check_bytes("mixtral paged stream", st)
+    if st.stream_report["degraded_tokens"]:
+        fail("mixtral paged stream: tokens degraded under 'block'")
+    se._page_pool.check_leaks()
+    log("  mixtral paged stream (block, LRU 3): tokens and traces equal the "
+        "resident paged serve; metered == observed per store; no page "
+        "leaked")
+    serve_line("mixtral paged stream", st)
+    stream_line("mixtral paged stream", st, link)
+    del se, backend
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"launches": launches, "eager_launches": {}}
+
+
+def shared_prompt_workload(cfg, rng):
+    """16 requests: one 256-token system prompt shared by all, then 32..256
+    tokens of each request's own, 32 new tokens."""
+    from repro_torch.serve import Request
+    sysp = rng.integers(2, cfg.vocab_size, (256,))
+    return [Request(uid=i, tokens=np.concatenate([
+        sysp, rng.integers(2, cfg.vocab_size, (int(rng.integers(32, 257)),))
+    ]).astype(np.int32), max_new=32) for i in range(16)]
+
+
+def projection(eng, cfg, st, measured_tok_s: float, link_gbs: float) -> None:
+    """``simulate_decode`` (the paper's analytic two-resource pipeline,
+    batch-1 request streams) on DeepSeek-MoE's served trace (every
+    request's decode routing, concatenated) under the paper's GPU-only
+    and GPU-NDP profiles, and GPU-only at this card's measured per-copy
+    link rate, beside the measured serve."""
+    import dataclasses
+    from repro_torch.offload import (GPU_NDP, GPU_ONLY, LayerSpecSim,
+                                     simulate_decode)
+    trace = np.concatenate([r.trace for r in st.results])
+    stores = eng._stores
+    E = cfg.moe.num_experts
+    spec = LayerSpecSim(
+        d_model=cfg.d_model, d_expert=cfg.moe.d_expert, num_experts=E,
+        top_k=cfg.moe.top_k, bytes_fp16=stores[0].expert_bytes(0, "fp16"),
+        bytes_quant=stores[0].expert_bytes(0, "quant"),
+        comp_bytes=[int(np.mean([s.compensator_bytes(e) for s in stores]))
+                    for e in range(E)])
+    measured = dataclasses.replace(GPU_ONLY, name="gpu-only-measured-link",
+                                   link_bw=link_gbs * 1e9)
+    parts = []
+    for prof, pols in ((GPU_ONLY, ("fp16", "quant", "ours")),
+                       (GPU_NDP, ("fp16", "quant", "ours", "ours_ndp")),
+                       (measured, ("fp16", "quant", "ours"))):
+        for pol in pols:
+            r = simulate_decode(trace, spec, prof, pol,
+                                top_n=cfg.moe.quant.top_n_restore,
+                                cache_capacity=16, num_layers=trace.shape[1])
+            parts.append(f"{prof.name} {pol} {r.tokens_per_s:.2f} tok/s "
+                         f"({r.transfer_bytes_per_token / 1e6:.2f} MB/token, "
+                         f"link {r.transfer_time_frac:.3f})")
+    log(f"  projection (simulate_decode on DeepSeek's served trace, "
+        f"{trace.shape[0]} tokens x {trace.shape[1]} layers, LRU 16, batch-1 "
+        f"streams; measured link {link_gbs:.2f} GB/s per copy): "
+        + "; ".join(parts) + f"; measured paged serve {measured_tok_s:.2f} "
+        f"tok/s over its window (4 slots, experts resident)")
+
+
+def paged_deepseek(dev, ds, resident, counters, link_gbs: float) -> dict:
+    """Phase 7's DeepSeek-MoE-16B (bf16, 28 layers): phase 8's 16 requests
+    paged (page 16, LRU 16 of 64) against phase 8's contiguous run
+    (tokens equal up to a first divergence at a bf16 near-tie, metered
+    bytes equal where the tokens are; one capture; a smaller cache); the
+    shared-system-prompt workload with prefix reuse off and on (fewer
+    prefill tokens, a page shared by two or more); the projection."""
+    from repro_torch.serve import synthetic_workload
+    eng, stacks, cfg = ds["engine"], ds["stacks"], ds["cfg"]
+
+    def run(reqs, **kw):
+        eng.attach_offload(stacks, policy="ours", cache_capacity=16)
+        eng._controller = None
+        torch.cuda.synchronize()
+        return eng.serve(reqs, num_slots=4, chunk=8, page_size=16, **kw)
+
+    g0 = eng.num_graphs
+    for c in counters.values():
+        c.reset()
+    paged = run(synthetic_workload(16, cfg.vocab_size, max_new=32,
+                                   min_len=64, max_len=512, seed=7))
+    launches = {n: c.n for n, c in counters.items()}
+    if eng.num_graphs - g0 != 1:
+        fail(f"deepseek paged captured {eng.num_graphs - g0} graphs, "
+             "expected 1")
+    parted = paged_divergence("deepseek paged", resident, paged,
+                              NEAR_TIE_BF16, True)
+    if not parted and not same_bytes(resident, paged):
+        fail("deepseek paged: equal tokens and traces, metered bytes differ")
+    if not paged.cache_hbm_bytes < resident.cache_hbm_bytes:
+        fail("deepseek paged cache not below the contiguous run's")
+    check_bytes("deepseek paged", paged)
+    log(f"  deepseek paged (phase 8's 16 requests, page 16, LRU 16 of 64): "
+        + ("tokens, traces and metered bytes equal phase 8's contiguous run"
+           if not parted else
+           f"requests part from phase 8's contiguous run at bf16 near-ties "
+           f"(first steps {parted}); the rest equal")
+        + f"; wrapper launches {launches}")
+    serve_line("deepseek contiguous (phase 8)", resident)
+    serve_line("deepseek paged", paged)
+    cache_line("deepseek contiguous (phase 8)", resident)
+    cache_line("deepseek paged", paged, resident)
+
+    runs = {}
+    for prefix in (False, True):
+        runs[prefix] = run(shared_prompt_workload(
+            cfg, np.random.default_rng(11)), prefix_cache=prefix)
+        check_bytes(f"deepseek shared prompt prefix={prefix}", runs[prefix])
+    off, on = runs[False], runs[True]
+    rep = on.page_report
+    if not on.prefill_tokens < off.prefill_tokens:
+        fail(f"prefix reuse prefilled {on.prefill_tokens} tokens, not below "
+             f"{off.prefill_tokens}")
+    if rep["peak_shared_ref"] < 2:
+        fail(f"prefix reuse: peak shared ref {rep['peak_shared_ref']}")
+    same = sum(np.array_equal(x.tokens, y.tokens)
+               for x, y in zip(off.results, on.results))
+    for name, st in (("off", off), ("on", on)):
+        tt = st.ttft_percentiles()
+        log(f"  deepseek shared prompt (16 requests: 256 shared + 32..256 "
+            f"own tokens, 32 new, page 16), prefix reuse {name}: "
+            f"{st.prefill_tokens} prefill tokens, prefix hit rate "
+            f"{st.page_report['prefix_hit_rate']:.4f}, peak shared ref "
+            f"{st.page_report['peak_shared_ref']}, TTFT p50/p95 "
+            f"{tt[50.0] * 1e3:.1f}/{tt[95.0] * 1e3:.1f} ms, "
+            f"{st.tokens_per_s:.2f} tok/s")
+        serve_line(f"deepseek shared prompt prefix {name}", st)
+        cache_line(f"deepseek shared prompt prefix {name}", st)
+    log(f"  deepseek shared prompt: prefill tokens {off.prefill_tokens} -> "
+        f"{on.prefill_tokens} ({on.prefill_tokens / off.prefill_tokens:.4f})"
+        f"; {same} of 16 requests' tokens identical with reuse on and off "
+        f"(bf16: the suffix prefill attends over the stored prefix, the "
+        f"full prefill over recomputed rows)")
+    admission_profile(eng, cfg)
+    projection(eng, cfg, paged, paged.tokens_per_s, link_gbs)
+    return {"launches": launches, "eager_launches": {}}
+
+
+def admission_profile(eng, cfg) -> None:
+    """Where a batch-1 admission's time goes, full prompt against suffix:
+    one shared-prompt request's full prefill (padded to 512) and the
+    suffix prefill of its tokens past the 256 shared ones over the same
+    cache, each timed on the host clock (mean of 3, synchronised) and
+    once under the profiler (device busy, kernels, the top 8)."""
+    req = shared_prompt_workload(cfg, np.random.default_rng(12))[0]
+    plen = req.prompt_len
+    toks = eng._pad_prompt(np.asarray(req.tokens, np.int32)[None])
+    suf = np.zeros((1, -(-(plen - 256) // 16) * 16), np.int32)
+    suf[0, :plen - 256] = req.tokens[256:]
+    _, rc = eng._prefill_into(toks, plen, toks.shape[1])
+    calls = {"full": lambda: eng._prefill_into(toks, plen, toks.shape[1]),
+             "suffix": lambda: eng._prefill_suffix(rc, suf, 256, plen)}
+    for name in ("suffix", "full"):
+        fn = calls[name]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+            torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / 3
+        kernels, wall = profiled(fn)
+        busy = sum(ms for _, ms in kernels)
+        n_tok = toks.shape[1] if name == "full" else suf.shape[1]
+        log(f"  admission profile, {name} prefill ({n_tok} tokens, batch "
+            f"1): host {host * 1e3:.3f} ms unprofiled, device busy "
+            f"{busy:.3f} ms ({busy / (host * 1e3):.3f} of it), "
+            f"{len(kernels)} kernels, {wall * 1e3:.3f} ms profiled")
+        log_top(kernels, 1, "admission")
 
 
 # ---------------------------------------------------------------------------
@@ -2565,8 +3053,6 @@ def main() -> int:
     log("  -- Mixtral-8x7B (phase 3's weights, f32)")
     streamed = {"mixtral_stream": stream_mixtral(
         dev, mixtral, served["mixtral_serve"], counters)}
-    del mixtral
-    torch.cuda.empty_cache()
     log("  -- DeepSeek-MoE-16B (phase 7's weights, bf16)")
     streamed["deepseek_stream"] = stream_deepseek(
         dev, ds, served["deepseek_serve"]["resident"], counters)
@@ -2574,8 +3060,26 @@ def main() -> int:
         for kname in ("fused_expert_matmul", "flash_decode_attention"):
             if sv["launches"].get(kname, 0) <= 0:
                 fail(f"{name}: {kname} was never launched: {sv['launches']}")
+    link_gbs = streamed["deepseek_stream"].pop("link_gbs")
     served.update(streamed)
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    log("== phase 11: the paged KV cache (on phase 8's engines, before "
+        "phase 9)")
+    t11 = time.perf_counter()
+    log("  -- Mixtral-8x7B (phase 3's engine, f32)")
+    paged = {"mixtral_paged": paged_mixtral(dev, mixtral, counters)}
+    del mixtral
+    torch.cuda.empty_cache()
+    log("  -- DeepSeek-MoE-16B (phase 7's engine, bf16)")
+    paged["deepseek_paged"] = paged_deepseek(
+        dev, ds, served["deepseek_serve"]["resident"], counters, link_gbs)
+    for name, sv in paged.items():
+        for kname in ("fused_expert_matmul", "flash_decode_attention"):
+            if sv["launches"].get(kname, 0) <= 0:
+                fail(f"{name}: {kname} was never launched: {sv['launches']}")
+    served.update(paged)
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
     del ds
     torch.cuda.empty_cache()
 

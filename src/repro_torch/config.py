@@ -181,8 +181,8 @@ class StreamConfig:
 @dataclass(frozen=True)
 class ServeConfig:
     """The serving knobs the port reads (the JAX ``ServeConfig`` fields
-    of the same names and defaults; paging, prefix caching and
-    speculative decoding are not ported yet)."""
+    of the same names and defaults; speculative decoding is not ported
+    yet)."""
     temperature: float = 0.0
     eos_id: int = 1
     cache_experts: int = 4             # device-resident expert cache per layer
@@ -190,6 +190,13 @@ class ServeConfig:
     # scheduler refills completed slots between fixed-shape chunks)
     num_slots: int = 4
     chunk_steps: int = 8
+    # paged KV cache: page_size > 0 (power of two) switches the serve
+    # cache's attention layers to block-table paging; prefix_cache
+    # additionally refcount-shares physical pages across requests whose
+    # prompts share full leading pages (prefill for the shared span runs
+    # once)
+    page_size: int = 0
+    prefix_cache: bool = False
     # adaptive top-n restoration under a bandwidth budget; when enabled,
     # ServeEngine.attach_offload attaches the controller
     control: ControlConfig = field(default_factory=ControlConfig)

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by its
 own ``nvcc`` process (all started together) into a shared library for
 ``sm_90a``, then loaded with ``ctypes``.  Libraries land in
 ``kernels/_build/`` (git-ignored), named by a hash of their source, the
-shared ``csrc/*.cuh`` headers and the flags, so a changed source or header
-rebuilds and an unchanged one is reused.
+``csrc/*.cu`` files it includes, the shared ``csrc/*.cuh`` headers and
+the flags, so a changed source or header rebuilds and an unchanged one is
+reused.
 Nothing is built at import time: the first kernel launch builds.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,7 +22,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_expert.cu", "flash_decode.cu", "quant_matmul.cu")
+SOURCES = ("fused_expert.cu", "flash_decode.cu", "flash_decode_paged.cu",
+           "quant_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,7 +48,10 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = (CSRC / source).read_bytes()
+    for inc in re.findall(rb'#include "(\w+\.cu)"', text):
+        text += (CSRC / inc.decode()).read_bytes()
+    text += " ".join(NVCC_FLAGS).encode()
     for header in sorted(CSRC.glob("*.cuh")):
         text += header.read_bytes()
     tag = hashlib.sha256(text).hexdigest()[:16]

@@ -55,6 +55,26 @@
 // bound is open (PERF.md §7); a variant with q in registers and the scores
 // summed by a reduce-scatter over the lanes was slower.
 //
+// Block-table mode (paged KV cache; the PAGED instantiations): with a
+// block table (B, MB) of int32 page ids (-1 = unmapped) and a page size PS
+// (a power of two), k, v, the scales and kv_pos are a page pool (P, PS,
+// ...) and slot s of row b (S = MB * PS logical slots) lives at flat row
+// max(block[b][s / PS], 0) * PS + s % PS, its position forced to -1 where
+// the entry is unmapped: the rule of the plain route (gather each row's
+// view from the pool, then the contiguous kernel), so the two agree bit
+// for bit.  Only the row address changes; the tiling, the cluster merge
+// and the arithmetic are the contiguous mode's, and the pool's bytes are
+// read once, never gathered.  A lane of a tile resolves its slot's flat
+// row when the tile issues and hands it by shuffle to the lanes that copy
+// the row; it also ballots which half of its 4-byte word the slot's int8
+// scale is (the parity of the flat index, no longer the slot's); an
+// unmapped page's positions are stored as -1 instead of copied.  The mode
+// is a template flag, so the contiguous instantiations are the code they
+// were (a run-time branch cost them 3-10% at S 32768 and 7% at S 512:
+// more registers and the per-tile row lookups, PERF.md §6); the PAGED
+// instantiations are a library of their own (flash_decode_paged.cu
+// includes this file with FD_PAGED 1), so the two build in parallel.
+//
 // A row with no valid slot gives what the plain version and the TPU
 // kernel give there, since their softmax runs over masked scores that are
 // all equal: the mean over the row's S slots of V (times v_scale for an
@@ -64,6 +84,10 @@
 //
 // Plain C interface (route b of the build): the entry point returns the
 // launch's error code (a refused cluster launch included).
+#ifndef FD_PAGED
+#define FD_PAGED 0
+#endif
+
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +108,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Shapes of one instantiation.  SPW (slots per warp tile) makes one
 // block-wide stage kStageBytes; LPS lanes score one slot, each reading VPL
 // 16-byte vectors of its row; a lane sums EPL dimensions of V.
-template <typename T, int HD, int GP>
+template <typename T, int HD, int GP, bool PAGED = false>
 struct Geo {
   // ring depth: 3 stages for f32 rows, 4 for narrower ones (measured:
   // PERF.md §6)
@@ -111,7 +135,8 @@ struct Geo {
   static constexpr int RING = kWarps * ST * STAGE;
   static constexpr int POS = kWarps * PT * SPW * 4;
   static constexpr int SCL = kWarps * ST * SPW * 8;    // k/v scale words
-  static constexpr int MASK = kWarps * ST * 4;
+  // valid-slot bits per stage (and, paged, the scale words' hi-half bits)
+  static constexpr int MASK = (PAGED ? 2 : 1) * kWarps * ST * 4;
   static constexpr int PB = ((kWarps * SPW * GP * 4 + 15) / 16) * 16;
   static constexpr int QS = GP * HD * 4;
   static constexpr int BM = ((2 * GP * 4 + 15) / 16) * 16;  // m, l
@@ -218,16 +243,20 @@ __device__ __forceinline__ void load_elems(const char* p, float (&out)[N]) {
 // q (B,H,HD) f32 pre-scaled; k/v (B,S,KVH,HD) T; ks/vs (B,S,KVH) bf16 or
 // null; kv_pos (B,S) i32; cur (B,) i32; out (B,H,HD) f32.  Grid (CL, KVH,
 // B) in clusters of (CL, 1, 1); G real query heads per kv head (<= GP).
-template <typename T, int HD, int GP>
+// PAGED: block (B, S / PS) i32, and k/v (P,PS,KVH,HD), ks/vs (P,PS,KVH),
+// kv_pos (P,PS) a page pool of n_rows = P * PS rows.
+template <typename T, int HD, int GP, bool PAGED>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v,
                     const __nv_bfloat16* __restrict__ ks,
                     const __nv_bfloat16* __restrict__ vs,
                     const int* __restrict__ kv_pos,
-                    const int* __restrict__ cur_pos, float* __restrict__ out,
-                    int S, int H, int KVH, int G, int window) {
-  using Gm = Geo<T, HD, GP>;
+                    const int* __restrict__ cur_pos,
+                    const int* __restrict__ block, float* __restrict__ out,
+                    int S, int H, int KVH, int G, int window, int PS,
+                    int n_rows) {
+  using Gm = Geo<T, HD, GP, PAGED>;
   constexpr int SPW = Gm::SPW, LPS = Gm::LPS, EPV = Gm::EPV, EPL = Gm::EPL;
   constexpr int ST = Gm::ST, PT = Gm::PT, STAGE = Gm::STAGE, STRIDE = Gm::STRIDE;
   extern __shared__ __align__(16) char smem[];
@@ -243,7 +272,16 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const bool scaled = ks != nullptr;
-  const size_t n_scales = (size_t)gridDim.z * S * KVH;
+  const size_t n_scales = PAGED ? (size_t)n_rows * KVH
+                                : (size_t)gridDim.z * S * KVH;
+  // PAGED: log2(PS), this row's block-table row, and the flat pool row of
+  // slot s (an unmapped entry reads page 0; its position is forced -1)
+  const int ps_log2 = PAGED ? 31 - __clz(PS) : 0;
+  const int* brow = PAGED ? block + (size_t)b * (S >> ps_log2) : nullptr;
+  auto page_of = [&](int s) { return brow[s >> ps_log2]; };
+  auto flat_row = [&](int s, int pg) {
+    return max(pg, 0) * PS + (s & (PS - 1));
+  };
 
   // this warp's tiles: u = gw, gw + NW, ... below NWT
   const int NW = CL * kWarps, gw = rank * kWarps + warp;
@@ -258,9 +296,19 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   // positions of tile t into the positions ring (cp.async)
   auto copy_pos = [&](int t) {
     const int s = (gw + NW * t) * SPW + lane;
-    if (t < n && lane < SPW && s < S)
-      cp_async4(pos_s + (t % PT) * SPW + lane,
-                kv_pos + (size_t)b * S + s, 4);
+    if (t < n && lane < SPW && s < S) {
+      if constexpr (PAGED) {
+        const int pg = page_of(s);
+        if (pg < 0)
+          pos_s[(t % PT) * SPW + lane] = -1;
+        else
+          cp_async4(pos_s + (t % PT) * SPW + lane,
+                    kv_pos + flat_row(s, pg), 4);
+      } else {
+        cp_async4(pos_s + (t % PT) * SPW + lane,
+                  kv_pos + (size_t)b * S + s, 4);
+      }
+    }
   };
   // Tile t: its K and V rows into ring stage t % ST by 16-byte
   // cp.async (a tile with no valid slot issues none; the masked rows of a
@@ -275,23 +323,45 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
       const int pos = pos_s[(t % PT) * SPW + lane];
       ok = pos >= 0 && pos <= cur && (window <= 0 || pos > cur - window);
     }
+    // PAGED: this lane's slot's flat row (the tile's last slot past S)
+    int fr = 0;
+    if constexpr (PAGED) {
+      if (t < n && lane < SPW) {
+        const int s = min(s0 + lane, S - 1);
+        fr = flat_row(s, page_of(s));
+      }
+    }
     const unsigned mask = __ballot_sync(0xFFFFFFFFu, ok);
     if (lane == 0) mask_s[warp * ST + st] = mask;
+    if constexpr (PAGED) {
+      // which half of its 4-byte word each slot's bf16 scale is
+      const unsigned hi =
+          __ballot_sync(0xFFFFFFFFu, (((size_t)fr * KVH + kvh) & 1) != 0);
+      if (lane == 0) mask_s[kWarps * ST + warp * ST + st] = hi;
+    }
     if (mask != 0u) {
       constexpr int CPR = Gm::RB / 16;        // 16-byte chunks of a row
+      static_assert(!PAGED || SPW * CPR % 32 == 0,
+                    "every lane shuffles alike");
       char* dk = ring + st * STAGE;
       char* dv = dk + SPW * STRIDE;
 #pragma unroll
       for (int idx = lane; idx < SPW * CPR; idx += 32) {
         const int j = idx / CPR, ch = idx % CPR;
         const int src = (mask >> j) & 1u ? 16 : 0;
-        const size_t row = ((size_t)b * S + min(s0 + j, S - 1)) * KVH + kvh;
+        size_t row;
+        if constexpr (PAGED)
+          row = (size_t)__shfl_sync(0xFFFFFFFFu, fr, j) * KVH + kvh;
+        else
+          row = ((size_t)b * S + min(s0 + j, S - 1)) * KVH + kvh;
         const size_t off = row * Gm::RB + ch * 16;
         cp_async16(dk + Gm::chunk(j, ch), reinterpret_cast<const char*>(k) + off, src);
         cp_async16(dv + Gm::chunk(j, ch), reinterpret_cast<const char*>(v) + off, src);
       }
       if (scaled && ok) {
-        const size_t w = (((size_t)b * S + s0 + lane) * KVH + kvh) & ~(size_t)1;
+        const size_t w = (PAGED ? (size_t)fr * KVH + kvh
+                                : ((size_t)b * S + s0 + lane) * KVH + kvh) &
+                         ~(size_t)1;
         const int nb = w + 1 < n_scales ? 4 : 2;
         uint32_t* sc = scl_s + st * 2 * SPW + lane;
         cp_async4(sc, ks + w, nb);
@@ -343,8 +413,13 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
     const bool ok = (mask >> j) & 1u;
     float ksc = 1.f, vsc = 1.f;
     if (scaled) {
-      const int slot = (gw + NW * i) * SPW + j;
-      const bool hi = ((((size_t)b * S + slot) * KVH + kvh) & 1) != 0;
+      bool hi;
+      if constexpr (PAGED) {
+        hi = (mask_s[kWarps * ST + warp * ST + st] >> j) & 1u;
+      } else {
+        const int slot = (gw + NW * i) * SPW + j;
+        hi = ((((size_t)b * S + slot) * KVH + kvh) & 1) != 0;
+      }
       const uint32_t* sc = scl_s + st * 2 * SPW + j;
       ksc = __uint_as_float(hi ? (sc[0] & 0xFFFF0000u) : (sc[0] << 16));
       vsc = __uint_as_float(hi ? (sc[SPW] & 0xFFFF0000u) : (sc[SPW] << 16));
@@ -503,7 +578,9 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
       float A = 0.f;
       for (int t = rank; t < NT; t += CL)
         for (int s = t * TS; s < min(S, t * TS + TS); ++s) {
-          const size_t r = ((size_t)b * S + s) * KVH + kvh;
+          const size_t r =
+              (PAGED ? (size_t)flat_row(s, page_of(s)) : (size_t)b * S + s) *
+                  KVH + kvh;
           float val = to_f(v[r * HD + d]);
           if (scaled) val *= __bfloat162float(vs[r]);
           A += val;
@@ -521,13 +598,13 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   cluster.sync();                   // no block leaves while it is read
 }
 
-template <typename T, int HD, int GP>
+template <typename T, int HD, int GP, bool PAGED>
 cudaLaunchConfig_t make_config(cudaLaunchAttribute* attr, int cl, int B,
                                int KVH, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cl, KVH, B);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = Geo<T, HD, GP>::SMEM;
+  cfg.dynamicSmemBytes = Geo<T, HD, GP, PAGED>::SMEM;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cl;
@@ -538,42 +615,44 @@ cudaLaunchConfig_t make_config(cudaLaunchAttribute* attr, int cl, int B,
   return cfg;
 }
 
-template <typename T, int HD, int GP>
+template <typename T, int HD, int GP, bool PAGED>
 int prepare() {
   static int rc = -1;               // once per instantiation
   if (rc < 0)
-    rc = (int)cudaFuncSetAttribute(flash_decode_kernel<T, HD, GP>,
+    rc = (int)cudaFuncSetAttribute(flash_decode_kernel<T, HD, GP, PAGED>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   Geo<T, HD, GP>::SMEM);
+                                   Geo<T, HD, GP, PAGED>::SMEM);
   return rc;
 }
 
-template <typename T, int HD, int GP>
-int launch(const float* q, const void* k, const void* v, const void* ks,
-           const void* vs, const int* kv_pos, const int* cur_pos, float* out,
-           int B, int S, int H, int KVH, int window, int cl,
-           cudaStream_t stream) {
-  int rc = prepare<T, HD, GP>();
+template <typename T, int HD, int GP, bool PAGED>
+int launch_mode(const float* q, const void* k, const void* v, const void* ks,
+                const void* vs, const int* kv_pos, const int* cur_pos,
+                const int* block, float* out, int B, int S, int H, int KVH,
+                int window, int cl, int PS, int n_rows, cudaStream_t stream) {
+  int rc = prepare<T, HD, GP, PAGED>();
   if (rc != 0) return rc;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = make_config<T, HD, GP>(attr, cl, B, KVH, stream);
+  const cudaLaunchConfig_t cfg =
+      make_config<T, HD, GP, PAGED>(attr, cl, B, KVH, stream);
   rc = (int)cudaLaunchKernelEx(
-      &cfg, flash_decode_kernel<T, HD, GP>, q, static_cast<const T*>(k),
+      &cfg, flash_decode_kernel<T, HD, GP, PAGED>, q, static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const __nv_bfloat16*>(ks),
-      static_cast<const __nv_bfloat16*>(vs), kv_pos, cur_pos, out, S, H, KVH,
-      H / KVH, window);
+      static_cast<const __nv_bfloat16*>(vs), kv_pos, cur_pos, block, out, S, H,
+      KVH, H / KVH, window, PS, n_rows);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD, int GP>
 int max_clusters(int cl, int* n) {
-  int rc = prepare<T, HD, GP>();
+  int rc = prepare<T, HD, GP, false>();
   if (rc != 0) return rc;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = make_config<T, HD, GP>(attr, cl, 1, 1, 0);
-  return (int)cudaOccupancyMaxActiveClusters(n, flash_decode_kernel<T, HD, GP>,
-                                             &cfg);
+  const cudaLaunchConfig_t cfg =
+      make_config<T, HD, GP, false>(attr, cl, 1, 1, 0);
+  return (int)cudaOccupancyMaxActiveClusters(
+      n, flash_decode_kernel<T, HD, GP, false>, &cfg);
 }
 
 // the group-size template for G query heads per kv head
@@ -611,10 +690,14 @@ int dispatch(int kind, int HD, int G, A... args) {
   return (int)cudaErrorInvalidValue;
 }
 
+// this library's mode: the contiguous instantiations here, the PAGED ones
+// in flash_decode_paged.cu (which includes this file with FD_PAGED 1)
 template <typename T, int HD, int GP>
 struct Launch {
   template <typename... A>
-  static int run(A... a) { return launch<T, HD, GP>(a...); }
+  static int run(A... a) {
+    return launch_mode<T, HD, GP, (bool)FD_PAGED>(a...);
+  }
 };
 template <typename T, int HD, int GP>
 struct MaxClusters {
@@ -625,10 +708,17 @@ inline bool cluster_ok(int cl) {
   return cl == 1 || cl == 2 || cl == 4 || cl == kMaxCluster;
 }
 
+inline bool args_ok(int B, int S, int H, int KVH, int cl, int kv_kind,
+                    const void* k_scale, const void* v_scale) {
+  return KVH > 0 && H % KVH == 0 && B > 0 && S > 0 && cluster_ok(cl) &&
+         (kv_kind == 2) == (k_scale != nullptr && v_scale != nullptr);
+}
+
 }  // namespace
 
 extern "C" {
 
+#if !FD_PAGED
 // kv_kind: 0 = f32 cache, 1 = bf16 cache, 2 = int8 cache with bf16 scales.
 // out (B,H,HD) f32.  Requires HD in {32, 64, 128, 256}, H/KVH <= 8, and
 // cl (blocks per (row, kv-head), a cluster) in {1, 2, 4, 8}.
@@ -637,19 +727,41 @@ int flash_decode_forward(const float* q, const void* k, const void* v,
                          const int* kv_pos, const int* cur_pos, float* out,
                          int B, int S, int H, int KVH, int HD, int window,
                          int cl, int kv_kind, cudaStream_t stream) {
-  if (KVH <= 0 || H % KVH != 0 || B <= 0 || S <= 0 || !cluster_ok(cl) ||
-      (kv_kind == 2) != (k_scale != nullptr && v_scale != nullptr))
+  if (!args_ok(B, S, H, KVH, cl, kv_kind, k_scale, v_scale))
     return (int)cudaErrorInvalidValue;
   return dispatch<Launch>(kv_kind, HD, H / KVH, q, k, v, k_scale, v_scale,
-                          kv_pos, cur_pos, out, B, S, H, KVH, window, cl,
-                          stream);
+                          kv_pos, cur_pos, static_cast<const int*>(nullptr),
+                          out, B, S, H, KVH, window, cl, 0, B * S, stream);
 }
 
 // How many clusters of cl blocks of the instantiation for (kv_kind, HD,
-// G) the card holds at once (cudaOccupancyMaxActiveClusters), in *n.
+// G) the card holds at once (cudaOccupancyMaxActiveClusters), in *n.  A
+// paged call takes the cluster size of a contiguous one at its logical S,
+// so the two deal the slots alike.
 int flash_decode_max_clusters(int kv_kind, int HD, int G, int cl, int* n) {
   if (!cluster_ok(cl)) return (int)cudaErrorInvalidValue;
   return dispatch<MaxClusters>(kv_kind, HD, G, cl, n);
 }
+#else
+// The block-table mode: as flash_decode_forward over a page pool, block
+// (B, S / page_size) i32 page ids (-1 = unmapped) of a pool of num_pages
+// pages of page_size (a power of two) slots.
+int flash_decode_paged_forward(const float* q, const void* k, const void* v,
+                               const void* k_scale, const void* v_scale,
+                               const int* kv_pos, const int* cur_pos,
+                               const int* block, float* out, int B, int S,
+                               int H, int KVH, int HD, int window, int cl,
+                               int kv_kind, int page_size, int num_pages,
+                               cudaStream_t stream) {
+  if (!args_ok(B, S, H, KVH, cl, kv_kind, k_scale, v_scale) ||
+      block == nullptr || page_size <= 0 ||
+      (page_size & (page_size - 1)) != 0 || S % page_size != 0 ||
+      num_pages <= 0)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<Launch>(kv_kind, HD, H / KVH, q, k, v, k_scale, v_scale,
+                          kv_pos, cur_pos, block, out, B, S, H, KVH, window,
+                          cl, page_size, num_pages * page_size, stream);
+}
+#endif
 
 }  // extern "C"

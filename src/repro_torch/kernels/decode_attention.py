@@ -9,6 +9,13 @@ the slots of each (row, kv-head) are split over a thread-block cluster
 whose blocks merge in distributed shared memory; see the source note
 there.  ``launch_geometry`` and ``block_slots`` mirror how the kernel
 deals out the slots.
+
+``flash_decode_attention_paged`` is the same attention over a paged KV
+cache (``models/kvcache.py``: a page pool plus a per-row block table).
+The kernel reads the pool through the block table in place (its
+block-table mode); the plain route gathers each row's view from the pool
+(``paged_gather``) and runs the contiguous plain version, which is also
+what the JAX package's paged decode computes.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..models.kvcache import paged_gather
 from .build import LaunchCounter, check, load
 
 launches = LaunchCounter()
@@ -64,6 +72,17 @@ def _lib() -> ctypes.CDLL:
         lib.flash_decode_max_clusters.argtypes = [i] * 4 + [
             ctypes.POINTER(i)]
         lib.flash_decode_max_clusters.restype = i
+    return lib
+
+
+def _paged_lib() -> ctypes.CDLL:
+    """The block-table mode's library (``csrc/flash_decode_paged.cu``: the
+    kernel's PAGED instantiations, built beside the contiguous ones)."""
+    lib = load("flash_decode_paged.cu")
+    if lib.flash_decode_paged_forward.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_decode_paged_forward.argtypes = [p] * 9 + [i] * 10 + [p]
+        lib.flash_decode_paged_forward.restype = i
     return lib
 
 
@@ -139,8 +158,80 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
                              f"tensors; q is on {q.device}")
         return flash_decode_attention_plain(q, k, v, kv_pos, cur_pos,
                                             k_scale, v_scale, window)
+    return _launch(q, k, v, kv_pos, cur_pos, k_scale, v_scale, window,
+                   block=None, s_len=k.shape[1])
+
+
+def flash_decode_attention_paged_plain(q, k_pool, v_pool, pos_pool, block,
+                                       cur_pos, k_scale=None, v_scale=None,
+                                       window: Optional[int] = None
+                                       ) -> torch.Tensor:
+    """The plain route of paged decode attention: each row's view gathered
+    from the pool through ``block`` (``paged_gather``), then the
+    contiguous plain version.  q: (B, H, hd) pre-scaled; k_pool/v_pool:
+    (P, PS, KVH, hd); pos_pool: (P, PS); block: (B, max_blocks) int32 (-1
+    = unmapped); scales: (P, PS, KVH) for an int8 pool.  Returns (B, H,
+    hd) f32."""
+    cache = {"k": k_pool, "v": v_pool, "pos": pos_pool, "block": block}
+    if k_scale is not None:
+        cache["k_scale"], cache["v_scale"] = k_scale, v_scale
+    k, v, pos, ks, vs = paged_gather(cache)
+    return flash_decode_attention_plain(q, k, v, pos, cur_pos, ks, vs,
+                                        window)
+
+
+def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 pos_pool: torch.Tensor,
+                                 block: torch.Tensor, cur_pos: torch.Tensor,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None, *,
+                                 window: Optional[int] = None,
+                                 require_kernel: bool = False
+                                 ) -> torch.Tensor:
+    """(B, H, hd) f32 decode attention over a paged KV cache; arguments
+    as in the plain version.  A CUDA tensor launches the kernel in its
+    block-table mode (reading the pool in place, no gather) or raises; a
+    CPU tensor runs the plain route, unless ``require_kernel`` asks for
+    the kernel.  Equal bit for bit to ``paged_gather`` followed by
+    ``flash_decode_attention`` on the card."""
+    if not q.is_cuda:
+        if require_kernel:
+            raise ValueError("the CUDA flash-decode kernel needs CUDA "
+                             f"tensors; q is on {q.device}")
+        return flash_decode_attention_paged_plain(
+            q, k_pool, v_pool, pos_pool, block, cur_pos, k_scale, v_scale,
+            window)
+    n_pages, ps = k_pool.shape[:2]
+    if block.dtype != torch.int32 or block.ndim != 2 or \
+            block.shape[0] != q.shape[0]:
+        raise ValueError(f"block must be int32 (B, max_blocks) with B = "
+                         f"{q.shape[0]}; got {block.dtype} "
+                         f"{tuple(block.shape)}")
+    if ps <= 0 or ps & (ps - 1):
+        raise ValueError(f"the page size must be a power of two: {ps}")
+    if tuple(pos_pool.shape) != (n_pages, ps) or \
+            pos_pool.dtype != torch.int32:
+        raise ValueError(f"the pool's pos plane must be int32 "
+                         f"({n_pages}, {ps}); got {pos_pool.dtype} "
+                         f"{tuple(pos_pool.shape)}")
+    if v_pool.shape != k_pool.shape or (k_scale is not None and (
+            k_scale.shape != k_pool.shape[:3]
+            or v_scale is None or v_scale.shape != k_pool.shape[:3])):
+        raise ValueError("k_pool, v_pool (P, PS, KVH, hd) and their scales "
+                         "(P, PS, KVH) must agree in shape")
+    return _launch(q, k_pool, v_pool, pos_pool, cur_pos, k_scale, v_scale,
+                   window, block=block, s_len=block.shape[1] * ps)
+
+
+def _launch(q, k, v, kv_pos, cur_pos, k_scale, v_scale, window, *, block,
+            s_len: int) -> torch.Tensor:
+    """Check the arguments and launch the kernel: over a contiguous (B, S,
+    KVH, hd) cache (``block`` None) or, in its block-table mode, over a
+    (P, PS, KVH, hd) pool of ``s_len`` = max_blocks * PS logical slots
+    per row."""
     b, h, hd = q.shape
-    s_len, kvh = k.shape[1], k.shape[2]
+    kvh = k.shape[2]
     if k.dtype not in _KV_KIND or v.dtype != k.dtype:
         raise ValueError(f"unsupported KV dtypes {k.dtype}/{v.dtype}")
     scaled = k.dtype == torch.int8
@@ -157,6 +248,8 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
     if scaled:
         tensors["k_scale"] = k_scale
         tensors["v_scale"] = v_scale
+    if block is not None:
+        tensors["block"] = block
     for name, t in tensors.items():
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor on {dev}")
@@ -172,13 +265,20 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
     cl = launch_geometry(b * kvh, s_len, slots_per_warp(hd, k.element_size()),
                          cluster_capacity(dev, kind, hd, h // kvh))
     out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    rc = _lib().flash_decode_forward(
-        tensors["q"].data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if scaled else None,
-        v_scale.data_ptr() if scaled else None,
-        tensors["kv_pos"].data_ptr(), tensors["cur_pos"].data_ptr(),
-        out.data_ptr(), b, s_len, h, kvh, hd, int(window or 0), cl, kind,
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "flash_decode_forward")
+    ptrs = (tensors["q"].data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if scaled else None,
+            v_scale.data_ptr() if scaled else None,
+            tensors["kv_pos"].data_ptr(), tensors["cur_pos"].data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if block is None:
+        rc = _lib().flash_decode_forward(
+            *ptrs, out.data_ptr(), b, s_len, h, kvh, hd, int(window or 0),
+            cl, kind, stream)
+        check(rc, "flash_decode_forward")
+    else:
+        rc = _paged_lib().flash_decode_paged_forward(
+            *ptrs, block.data_ptr(), out.data_ptr(), b, s_len, h, kvh, hd,
+            int(window or 0), cl, kind, k.shape[1], k.shape[0], stream)
+        check(rc, "flash_decode_paged_forward")
     launches.n += 1
     return out

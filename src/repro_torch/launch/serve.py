@@ -24,15 +24,19 @@ between chunks:
 - ``--bytes-per-token B`` / ``--target-tokens-per-s T`` (with
   ``--offload``): the runtime bandwidth-budget controller retunes the
   per-layer (top_n, rank_cap) plan between chunks;
+- ``--page-size P`` (with ``--requests``): a paged KV cache of P-token
+  pages (a power of two), the pool sized to the workload's largest
+  concurrent needs; ``--prefix-cache`` also shares the physical pages of
+  common prompt prefixes (prints the ``pages`` line);
 - ``--stream`` (with ``--offload``): async expert streaming — the experts
   live in a pinned host image and every metered byte is copied into the
   device containers the decode graph reads (``--stream-ring`` slots per
   layer, ``--stream-miss`` block | degrade, ``--stream-fallback-bits``).
 
 Everything runs on ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path).  The JAX CLI's expert-parallel mesh, paged KV cache with
-prefix reuse and speculative decoding are not ported: their flags raise
-``NotImplementedError`` naming the ROADMAP item.  The compile count
+PyTorch path).  The JAX CLI's expert-parallel mesh and speculative
+decoding are not ported: their flags raise ``NotImplementedError``
+naming the ROADMAP item.  The compile count
 becomes ``ServeEngine.num_graphs``.
 """
 from __future__ import annotations
@@ -50,8 +54,6 @@ from .compress import PARAMS_INIT
 # flags of the JAX CLI whose serving paths are not ported: the ROADMAP
 # item each waits for
 _UNPORTED = {"mesh": "A13 (expert parallelism)",
-             "page_size": "A9 (paged KV cache)",
-             "prefix_cache": "A9 (paged KV cache)",
              "spec_k": "A11 (speculative decoding)",
              "drafter": "A11 (speculative decoding)"}
 
@@ -78,9 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="decode steps per chunk; the scheduler refills "
                          "finished slots between chunks")
     ap.add_argument("--page-size", type=int, default=0,
-                    help="paged KV cache page size (not ported: ROADMAP A9)")
+                    help="paged KV cache page size (power of two; 0 = "
+                         "contiguous per-slot buckets)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="prefix page sharing (not ported: ROADMAP A9)")
+                    help="share physical KV pages across requests with a "
+                         "common prompt prefix (needs --page-size)")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative draft length (not ported: ROADMAP "
                          "A11)")
@@ -163,6 +167,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.stream and not args.offload:
         ap.error("--stream needs --offload (the stream engine is driven "
                  "by the offload stores' metering events)")
+    if args.prefix_cache and args.page_size <= 0:
+        ap.error("--prefix-cache needs --page-size (prefixes are shared "
+                 "as pages)")
     cfg = get_config(args.arch, reduced=not args.full_config)
     if args.offload and cfg.moe is None:
         ap.error(f"--offload needs an MoE arch; {cfg.name} has none")
@@ -247,7 +254,8 @@ def run(cfg, args) -> Dict:
             max_new=args.max_new, min_len=max(args.prompt_len // 2, 1),
             max_len=args.prompt_len, seed=args.seed)
         stats = eng.serve(reqs, num_slots=args.slots, chunk=args.chunk,
-                          seed=args.seed)
+                          seed=args.seed, page_size=args.page_size,
+                          prefix_cache=args.prefix_cache)
         out["stats"] = stats
         lat = stats.latency_percentiles((50.0, 95.0))
         print(f"{cfg.name}: {args.requests} requests on {args.slots} slots "
@@ -260,6 +268,14 @@ def run(cfg, args) -> Dict:
         print(f"cache: {stats.cache_hbm_bytes / 2**20:.2f} MiB HBM "
               f"({stats.cache_hbm_bytes_per_token / 2**10:.1f} KiB/token), "
               f"{stats.prefill_tokens} prefill tokens")
+        pr = stats.page_report
+        if pr is not None:
+            print(f"pages ({pr['num_pages']}x{pr['page_size']}): "
+                  f"{pr['allocs']} allocs, prefix hit "
+                  f"{pr['prefix_hit_rate']:.0%} "
+                  f"({pr['prefix_hits']}/{pr['prefix_queries']}), "
+                  f"peak shared ref {pr['peak_shared_ref']}, "
+                  f"{pr['evictions']} evictions")
         rep = stats.offload_report
         if rep is not None:
             print(f"offload ({rep['policy']}): "

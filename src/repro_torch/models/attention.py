@@ -1,11 +1,16 @@
 """GQA attention: prefill and step-mode decode (port of
-``repro/models/attention.py``: ``attention`` and ``decode_attention``).
+``repro/models/attention.py``: ``attention`` and ``decode_attention``,
+and the paged branch of the step-mode attention layer of
+``repro/models/transformer.py``).
 
 Prefill attention is plain PyTorch (the JAX package computes it outside
 any Pallas kernel too).  Decode attention of one query token per row
 without softcap goes to the flash-decode kernel wrapper; other step-mode
 shapes (several query tokens, per-query positions, softcap) and
-``impl='ref'`` run the plain composition below.
+``impl='ref'`` run the plain composition below.  Over a paged cache
+(``paged_decode_attention``) one query token per row goes to the
+wrapper's block-table mode, which reads the page pool in place; the
+other shapes gather each row's view first, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from ..kernels.decode_attention import flash_decode_attention
+from ..kernels.decode_attention import (flash_decode_attention,
+                                        flash_decode_attention_paged)
+from .kvcache import paged_gather
 from .layers import softcap
 
 NEG_INF = -2.0 ** 30  # large-but-finite; keeps softmax NaN-free
@@ -103,3 +110,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         p = p * v_scale.float().permute(0, 2, 1)[:, :, None, None, :]
     out = _gqa_out(p, v_cache.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, cache, cur_pos: torch.Tensor, *,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None,
+                           impl: Optional[str] = None) -> torch.Tensor:
+    """Step-mode attention against a paged cache (``models/kvcache.py``:
+    page pool, pool-shaped ``pos`` plane, (B, max_blocks) block table),
+    after the step's writes.  One query token per row goes to
+    ``flash_decode_attention_paged`` (the kernel's block-table mode on the
+    card); several query tokens, or ``impl='ref'``, gather each row's
+    view (``paged_gather``) and run ``decode_attention``."""
+    b, sq, h, hd = q.shape
+    impl = ops.resolve_impl(impl)
+    one_pos = cur_pos.ndim == 1 or (cur_pos.ndim == 2
+                                    and cur_pos.shape[1] == 1)
+    if impl != "ref" and sq == 1 and one_pos:
+        scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+        out = flash_decode_attention_paged(
+            q[:, 0].float() * scale, cache["k"], cache["v"], cache["pos"],
+            cache["block"], cur_pos.reshape(b), cache.get("k_scale"),
+            cache.get("v_scale"), window=window,
+            require_kernel=(impl == "cuda"))
+        return out.reshape(b, 1, h, hd).to(q.dtype)
+    k, v, pos, ks, vs = paged_gather(cache)
+    return decode_attention(q, k, v, pos, cur_pos, window=window,
+                            scale=scale, k_scale=ks, v_scale=vs, impl=impl)

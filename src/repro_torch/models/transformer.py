@@ -16,11 +16,13 @@ import torch
 
 from .. import resolve_device
 from ..config import ModelConfig
-from .attention import attention, decode_attention
+from .attention import attention, decode_attention, paged_decode_attention
 from .ffn import ffn_apply, ffn_apply_quantized
 from .kvcache import (claim_slot, dequant_scales, init_attn_cache,
-                      prefill_attn_cache, reset_attn_cache, reset_slot,
-                      update_attn_cache)
+                      init_paged_attn_cache, is_paged, paged_claim,
+                      paged_reset, paged_seed_prefix,
+                      paged_update_attn_cache, prefill_attn_cache,
+                      reset_attn_cache, reset_slot, update_attn_cache)
 from .layers import apply_rope, dense_init, embed_init, rms_norm
 from .moe import RoutingInfo, moe_apply
 
@@ -229,9 +231,27 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def init_paged_caches(cfg: ModelConfig, num_slots: int, num_pages: int,
+                      page_size: int, max_blocks: int,
+                      dtype=torch.bfloat16, device=None) -> Dict:
+    """Slotted serve caches with paged attention layers: each layer owns
+    a (num_pages, page_size, ...) pool and a (num_slots, max_blocks)
+    block table, all layers sharing one page-id space, so the host
+    allocator hands out one page list per request.  (Every layer the
+    port runs is global attention; the JAX package keeps local rings and
+    recurrent states contiguous.)"""
+    return {"layers": [init_paged_attn_cache(
+                num_slots, num_pages, page_size, max_blocks,
+                cfg.num_kv_heads, cfg.head_dim, dtype, kv_bits=cfg.kv_bits,
+                device=device) for _ in layer_specs(cfg)],
+            "pos": torch.zeros((num_slots,), dtype=torch.int32,
+                               device=device)}
+
+
 def reset_caches(caches: Dict) -> Dict:
-    """Put caches back to their ``init_caches`` state in place, so the
-    tensors a captured decode graph reads stay the same ones."""
+    """Put caches (contiguous or paged) back to their ``init_caches`` /
+    ``init_paged_caches`` state in place, so the tensors a captured
+    decode graph reads stay the same ones."""
     for c in caches["layers"]:
         reset_attn_cache(c)
     caches["pos"].zero_()
@@ -258,14 +278,52 @@ def cache_reset_slot(cfg: ModelConfig, caches: Dict, slot: int) -> Dict:
     return caches
 
 
+def cache_claim_slot_paged(cfg: ModelConfig, caches: Dict, req_caches: Dict,
+                           slot: int, pages: torch.Tensor,
+                           write_mask: torch.Tensor) -> Dict:
+    """Paged twin of ``cache_claim_slot``, in place: each layer maps
+    ``pages`` into its block-table row and writes the request's
+    contiguous prefilled chunks into the pages ``write_mask`` marks as
+    this claim's (``kvcache.paged_claim``).  Returns ``caches``."""
+    for c, r in zip(caches["layers"], req_caches["layers"]):
+        paged_claim(c, r, slot, pages, write_mask)
+    caches["pos"][slot].copy_(req_caches["pos"][0])
+    return caches
+
+
+def cache_reset_slot_paged(cfg: ModelConfig, caches: Dict, slot: int
+                           ) -> Dict:
+    """Paged twin of ``cache_reset_slot``, in place: each layer only
+    unmaps the slot's block-table row (page contents are rewritten on the
+    next claim), and the slot's position returns to 0."""
+    for c in caches["layers"]:
+        paged_reset(c, slot)
+    caches["pos"][slot] = 0
+    return caches
+
+
+def cache_seed_prefix(cfg: ModelConfig, req_caches: Dict, caches: Dict,
+                      pages: torch.Tensor) -> Dict:
+    """Seed a batch-1 contiguous request cache, in place, with the
+    shared-prefix pages of a paged serve cache (``pages``: (max_blocks,)
+    page ids, -1 past the shared span), so a suffix-only prefill attends
+    over reused prefix KV without recomputing it.  Returns
+    ``req_caches``."""
+    for r, c in zip(req_caches["layers"], caches["layers"]):
+        paged_seed_prefix(r, c, pages)
+    return req_caches
+
+
 def mask_cache_padding(cfg: ModelConfig, caches: Dict, plen: torch.Tensor
                        ) -> Dict:
     """Invalidate cache entries written by right-padded prefill tokens:
     position planes at positions >= plen become -1 and the per-row decode
-    position is pinned to plen (in place)."""
+    position is pinned to plen (in place).  A paged layer's pool-shaped
+    ``pos`` plane is left alone."""
     lim = plen.to(torch.int32)[:, None]
     for c in caches["layers"]:
-        c["pos"].masked_fill_(c["pos"] >= lim, -1)
+        if not is_paged(c):
+            c["pos"].masked_fill_(c["pos"] >= lim, -1)
     caches["pos"].copy_(plen)
     return caches
 
@@ -280,7 +338,14 @@ def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, positions, cache):
     v = torch.einsum("bsd,dhk->bshk", x, ap["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if ctx.mode == "step":
+    if ctx.mode == "step" and is_paged(cache):
+        # paged: write through the block table, then read the pool through
+        # it (block-table contents are data, so one captured decode graph
+        # serves every length mix of its envelope)
+        paged_update_attn_cache(cache, k, v, positions)
+        out = paged_decode_attention(q, cache, positions,
+                                     impl=ctx.kernel_impl)
+    elif ctx.mode == "step":
         upd = update_attn_cache(cache, k, v, positions)
         ks, vs = dequant_scales(upd)
         out = decode_attention(q, upd["k"], upd["v"], upd["pos"], positions,

@@ -3,5 +3,6 @@ scheduler and the runtime bandwidth-budget controller."""
 from .controller import (BandwidthController, ControllerPlan,
                          ControllerRecord, static_plan)
 from .engine import (GenerationResult, ServeEngine, ServeStats, bucket_len,
-                     sample)
+                     router_trace, sample)
+from .paging import PagePool, PoolStats, prefix_page_hashes
 from .scheduler import Request, RequestResult, Scheduler, synthetic_workload

@@ -1,6 +1,8 @@
 """Batched serving engine: bucketed prefill, a decode loop with sampling
-on the device, and continuous-batching request serving (port of the
-contiguous-cache paths of ``repro/serve/engine.py``).
+on the device, continuous-batching request serving over a contiguous or
+a paged KV cache, and the router-trace export (port of
+``repro/serve/engine.py`` without its speculative rounds and
+expert-parallel mesh).
 
 Prompts right-pad to a power-of-two length and the padded cache slots
 are invalidated afterwards (``mask_cache_padding``), so padded decode
@@ -26,6 +28,17 @@ every accepted token's routing is replayed into the per-layer metered
 turns each chunk's wire bytes into the next chunk's (top_n, rank_cap)
 plan, copied into the decode graph's plan buffer.
 
+With ``page_size`` the slot caches are paged (``serve/paging.py``,
+``models/kvcache.py``): one page pool per layer sized to the workload's
+largest concurrent needs, a block table per slot, pages allocated per
+request in page quanta; ``prefix_cache`` maps the full prompt pages two
+requests share onto the same physical pages, so the shared span is
+prefilled once (the rest of the prompt by a suffix prefill over the
+seeded prefix).  Every write is in place, and one decode graph is
+captured per paged envelope (slots, pages, page size, blocks per slot):
+block tables are data, so every length mix in it replays that graph,
+whose attention reads the pool through the block table.
+
 With async expert streaming attached (``attach_streaming``) the metered
 bytes are real copies: the MoE layers serve from device containers
 booted from a low-bit fallback, every byte the meter charges is copied
@@ -49,10 +62,15 @@ import torch
 from .. import resolve_device
 from ..config import ControlConfig, ModelConfig, ServeConfig
 from ..models import model as lm
+from ..models.kvcache import is_paged
 from ..models.transformer import (ExecContext, cache_claim_slot,
-                                  init_caches, layer_specs,
-                                  mask_cache_padding, reset_caches)
+                                  cache_claim_slot_paged,
+                                  cache_reset_slot_paged, cache_seed_prefix,
+                                  init_caches, init_paged_caches,
+                                  layer_specs, mask_cache_padding,
+                                  reset_caches)
 from .controller import BandwidthController, ControllerPlan
+from .paging import PagePool, prefix_page_hashes
 from .scheduler import Request, RequestResult, Scheduler
 
 PROMPT_BUCKET_MIN = 16     # smallest padded-prompt length
@@ -62,6 +80,22 @@ CACHE_BUCKET_MIN = 32      # smallest bucketed cache length
 def bucket_len(n: int, minimum: int = CACHE_BUCKET_MIN) -> int:
     """Round ``n`` up to the next power of two (>= minimum)."""
     return max(minimum, 1 << max(int(n) - 1, 0).bit_length())
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _graph_key(caches, plan) -> Tuple:
+    """A decode graph's key: (batch, cache length, with a plan) for
+    contiguous caches; for paged ones the envelope (slots, logical length
+    max_blocks * page_size, with a plan, pages, page size)."""
+    c = caches["layers"][0]
+    if is_paged(c):
+        n_pages, ps = c["k"].shape[:2]
+        return (c["block"].shape[0], c["block"].shape[1] * ps,
+                plan is not None, n_pages, ps)
+    return (c["k"].shape[0], c["k"].shape[1], plan is not None)
 
 
 @dataclasses.dataclass
@@ -122,10 +156,15 @@ class ServeStats:
     # (chunks, moe_layers, 2) per-chunk controller plan [top_n, rank_cap]
     # (None when no bandwidth controller is attached)
     plan_trace: Optional[np.ndarray] = None
-    # device bytes held by the serve run's slot caches (every plane)
+    # device bytes held by the serve run's slot caches (every plane,
+    # page pools, block tables and pool position planes on the paged path)
     cache_hbm_bytes: int = 0
-    # padded prompt tokens pushed through prefill
+    # padded prompt tokens pushed through prefill (suffix-only prefills
+    # count only their suffix, so shared-prefix reuse shows up here)
     prefill_tokens: int = 0
+    # page-pool accounting (paged runs): allocs/frees, prefix hit rate,
+    # peak shared refcount, evictions (None on the contiguous path)
+    page_report: Optional[Dict] = None
     # host seconds spent replaying chunk traces into the expert stores
     # and updating the controller (between chunks, the card idle)
     meter_s: float = 0.0
@@ -251,10 +290,13 @@ class ServeEngine:
         self._prefill_traced_ctx = ExecContext(
             mode="prefill", quantized=quantized, exact_capacity=True,
             kernel_impl=kernel_impl, collect_trace=True)
-        # resident caches by (batch, cache length)
+        # resident caches by (batch, cache length), paged slot caches by
+        # (slots, pages, page size, blocks per slot)
         self._caches: Dict[Tuple[int, int], Dict] = {}
-        # captured decode steps by (batch, cache length, with a plan)
-        self.graphs: Dict[Tuple[int, int, bool], DecodeGraph] = {}
+        self._paged_caches: Dict[Tuple[int, int, int, int], Dict] = {}
+        # captured decode steps by ``_graph_key``
+        self.graphs: Dict[Tuple, DecodeGraph] = {}
+        self._page_pool = None         # the last paged serve's PagePool
         self._stores = None            # per-MoE-layer ExpertStore
         self._prefetcher = None
         self._offload_policy = "ours"
@@ -263,9 +305,9 @@ class ServeEngine:
 
     @property
     def num_graphs(self) -> int:
-        """Decode-step captures so far, one per (batch, cache bucket) and
-        plan/no plan: the counterpart of the JAX engine's
-        ``num_compiles['decode']``."""
+        """Decode-step captures so far, one per (batch, cache bucket) or
+        paged envelope, and plan/no plan: the counterpart of the JAX
+        engine's ``num_compiles['decode']``."""
         return len(self.graphs)
 
     def _sync(self):
@@ -289,6 +331,19 @@ class ServeEngine:
         if caches is None:
             caches = self._caches[(b, cache_len)] = init_caches(
                 self.cfg, b, cache_len, self.cache_dtype, device=self.device)
+            return caches
+        return reset_caches(caches)
+
+    def _paged_bucket(self, num_slots: int, num_pages: int, page_size: int,
+                      max_blocks: int) -> Dict:
+        """The resident paged slot caches of an envelope, reset (allocated
+        at first use)."""
+        key = (num_slots, num_pages, page_size, max_blocks)
+        caches = self._paged_caches.get(key)
+        if caches is None:
+            caches = self._paged_caches[key] = init_paged_caches(
+                self.cfg, num_slots, num_pages, page_size, max_blocks,
+                self.cache_dtype, device=self.device)
             return caches
         return reset_caches(caches)
 
@@ -413,7 +468,7 @@ class ServeEngine:
             .manual_seed(seed)
         plan_t = None if plan is None else torch.as_tensor(
             np.asarray(plan, np.int32)).to(self.device)
-        key = (b, caches["layers"][0]["k"].shape[1], plan is not None)
+        key = _graph_key(caches, plan)
         g = self.graphs.get(key) if self.decode_graph else None
         if g is not None:
             if g.caches is not caches:
@@ -686,14 +741,99 @@ class ServeEngine:
         eng.degraded_tokens += degraded
         return out, degraded
 
+    def _prefill_suffix(self, req_caches, tokens: np.ndarray, start: int,
+                        plen: int):
+        """Append-only prefill of a prompt suffix over a batch-1 cache
+        whose leading ``start`` positions were seeded from reused prefix
+        pages: a step-mode forward with explicit positions writes and
+        attends the suffix in one pass (several query tokens: the plain
+        attention path), so the shared span's prefill is paid once per
+        unique prefix.  Padded suffix tokens land at positions >= plen and
+        are invalidated after.  Returns (last-real-token logits,
+        req_caches)."""
+        s = tokens.shape[1]
+        positions = start + torch.arange(s, dtype=torch.int32,
+                                         device=self.device)[None]
+        out = lm.forward(self.params,
+                         torch.as_tensor(tokens, device=self.device),
+                         self.cfg, self._step_ctx, positions=positions,
+                         caches=req_caches)
+        mask_cache_padding(self.cfg, req_caches, torch.full(
+            (1,), plen, dtype=torch.int32, device=self.device))
+        return out.logits[:, plen - start - 1], req_caches
+
+    def _admit_paged(self, req: Request, pool: PagePool, caches, slot: int,
+                     slot_pages: Dict[int, List[int]], *, max_blocks: int,
+                     page_size: int, use_prefix: bool):
+        """Admit one request into the paged cache: map a page list (shared
+        prefix pages first, fresh pages after), run its prefill (full, or
+        suffix-only over a prefix seeded from the shared physical pages)
+        and return (last-token logits, batch-1 request caches, the claim's
+        ((max_blocks,) page ids, (max_blocks,) write mask), prefilled
+        tokens).  The page bookkeeping is host-side."""
+        ps = page_size
+        plen = req.prompt_len
+        plen_pad = bucket_len(plen, PROMPT_BUCKET_MIN)
+        need = -(-(plen_pad + req.max_new + 1) // ps)
+        shared: List[int] = []
+        hashes: List[bytes] = []
+        if use_prefix:
+            hashes = prefix_page_hashes(
+                np.asarray(req.tokens).reshape(-1).tolist(), ps)
+            hit = pool.lookup(hashes)
+            # keep at least the final prompt token in the suffix: its
+            # logits are where decode starts
+            shared = hit[:min(len(hit), (plen - 1) // ps)]
+            # retain BEFORE alloc: alloc may evict parked pages, and the
+            # matched run must not be its own victim
+            pool.retain(shared)
+        n_sh = len(shared)
+        page_list = list(shared) + pool.alloc(need - n_sh)
+        pages = np.full((max_blocks,), -1, np.int32)
+        pages[:need] = page_list
+        write_mask = np.zeros((max_blocks,), bool)
+        write_mask[n_sh:need] = True     # shared pages are read-only
+        # request-cache length: the page-aligned prompt capacity
+        req_len = _round_up(plen_pad, ps)
+        start = n_sh * ps
+        if start > 0:
+            seed = np.full((max_blocks,), -1, np.int32)
+            seed[:n_sh] = shared
+            rc = cache_seed_prefix(
+                self.cfg, self._bucket_caches(1, req_len), caches,
+                torch.as_tensor(seed, device=self.device))
+            suf = np.asarray(req.tokens, np.int32).reshape(-1)[start:]
+            # the suffix padded to the page, never past req_len
+            spad = _round_up(len(suf), ps)
+            toks = np.zeros((1, spad), np.int32)
+            toks[0, :len(suf)] = suf
+            lg, rc = self._prefill_suffix(rc, toks, start, plen)
+            n_prefill = spad
+        else:
+            lg, rc = self._prefill_request(req, req_len)
+            n_prefill = plen_pad
+        if use_prefix:
+            # publish every full prompt page (fresh ones get their content
+            # from the claim; register is first-writer-wins)
+            for j in range(n_sh, plen // ps):
+                pool.register(page_list[j], hashes[j])
+        slot_pages[slot] = page_list
+        return lg, rc, (torch.as_tensor(pages, device=self.device),
+                        torch.as_tensor(write_mask, device=self.device)), \
+            n_prefill
+
     def _claim(self, caches, req_caches, logits: torch.Tensor,
-               req_logits: torch.Tensor, slot: int) -> None:
+               req_logits: torch.Tensor, slot: int, pages=None) -> None:
         """Write one request's prefilled batch-1 cache and last-token
         logits into row ``slot`` of the slot caches and of the logits the
         next chunk samples from, in place (the counterpart of the JAX
-        engine's donated ``claim``).  With one slot the request was
-        prefilled into the slot caches themselves."""
-        if req_caches is not caches:
+        engine's donated ``claim`` / ``claim_paged``).  ``pages``: the
+        (page ids, write mask) of a paged claim.  With one contiguous
+        slot the request was prefilled into the slot caches themselves."""
+        if pages is not None:
+            cache_claim_slot_paged(self.cfg, caches, req_caches, slot,
+                                   *pages)
+        elif req_caches is not caches:
             cache_claim_slot(self.cfg, caches, req_caches, slot)
         logits[slot].copy_(req_logits[0])
 
@@ -703,6 +843,7 @@ class ServeEngine:
               num_slots: Optional[int] = None, chunk: Optional[int] = None,
               seed: int = 0, page_size: Optional[int] = None,
               prefix_cache: Optional[bool] = None,
+              pool_pages: Optional[int] = None,
               spec_k: Optional[int] = None, drafter=None) -> ServeStats:
         """Serve a request workload through the continuous-batching loop.
 
@@ -720,21 +861,31 @@ class ServeEngine:
         bytes feed ``controller.update`` at the chunk boundary, and the
         per-chunk plans come back as ``ServeStats.plan_trace``.
 
-        The paged cache (``page_size``, ``prefix_cache``) and speculative
-        rounds (``spec_k``, ``drafter``) are not ported: asking for either
-        raises."""
+        ``page_size`` (default ``scfg.page_size``; 0 = off) switches the
+        slot caches to block-table paging: capacity is allocated in page
+        quanta per request from a pool of the ``num_slots`` largest
+        needs (plus the trash page) instead of one power-of-two bucket per
+        slot, and one decode graph serves the envelope.
+        ``prefix_cache`` (default ``scfg.prefix_cache``) refcount-shares
+        the physical pages of common prompt prefixes so their prefill
+        runs once; ``ServeStats.page_report`` is the pool's report.
+        ``pool_pages`` overrides the allocatable pool size (excluding the
+        trash page).
+
+        Speculative rounds (``spec_k``, ``drafter``) are not ported:
+        asking for them raises."""
         from ..offload.store import (offload_report, replay_decode_trace,
                                      snapshot_offload)
-        if page_size or prefix_cache:
-            raise NotImplementedError(
-                "the paged KV cache and prefix reuse are not ported yet "
-                "(ROADMAP A9): serve() runs the contiguous cache only")
         if spec_k or drafter is not None:
             raise NotImplementedError(
                 "speculative rounds are not ported yet (ROADMAP A11)")
         cfg = self.cfg
         num_slots = num_slots or self.scfg.num_slots
         chunk = chunk or self.scfg.chunk_steps
+        ps = self.scfg.page_size if page_size is None else page_size
+        use_prefix = (self.scfg.prefix_cache if prefix_cache is None
+                      else prefix_cache)
+        paged = ps > 0
         reqs = list(requests)
         order = [r.uid for r in reqs]       # results in submission order
         reqs = sorted(reqs, key=lambda r: r.arrival_s)
@@ -744,12 +895,35 @@ class ServeEngine:
         def padded_plen(r: Request) -> int:
             return bucket_len(r.prompt_len, PROMPT_BUCKET_MIN)
 
-        cache_len = bucket_len(max(padded_plen(r) + r.max_new
-                                   for r in reqs) + 1)
-        caches = self._bucket_caches(num_slots, cache_len)
+        pool = None
+        slot_pages: Dict[int, List[int]] = {}
+        if paged:
+            if ps & (ps - 1):
+                raise ValueError(f"page_size must be a power of two: {ps}")
+            if use_prefix and self._stream is not None:
+                raise ValueError("prefix_cache under expert streaming is "
+                                 "unsupported (suffix prefill bypasses the "
+                                 "stage-and-rerun fixpoint)")
+            # per-request page need; +1 matches the contiguous headroom
+            needs = sorted((-(-(padded_plen(r) + r.max_new + 1) // ps)
+                            for r in reqs), reverse=True)
+            max_blocks = needs[0]
+            # the pool: the num_slots largest concurrent residents plus
+            # the trash page
+            n_alloc = (pool_pages if pool_pages
+                       else min(sum(needs[:num_slots]),
+                                num_slots * max_blocks))
+            caches = self._paged_bucket(num_slots, 1 + n_alloc, ps,
+                                        max_blocks)
+            pool = PagePool(1 + n_alloc, ps)
+        else:
+            cache_len = bucket_len(max(padded_plen(r) + r.max_new
+                                       for r in reqs) + 1)
+            caches = self._bucket_caches(num_slots, cache_len)
         cache_hbm = sum(t.numel() * t.element_size()
                         for c in caches["layers"] for t in c.values()) \
             + caches["pos"].numel() * caches["pos"].element_size()
+        self._page_pool = pool
         sched = Scheduler(num_slots)
         for r in reqs:
             sched.submit(r)
@@ -774,12 +948,19 @@ class ServeEngine:
                 continue
             for slot, req in admits:
                 tp = time.perf_counter()
-                lg, rc = self._prefill_request(req, cache_len)
-                prefill_tok += padded_plen(req)
+                if paged:
+                    lg, rc, pages, n_pre = self._admit_paged(
+                        req, pool, caches, slot, slot_pages,
+                        max_blocks=max_blocks, page_size=ps,
+                        use_prefix=use_prefix)
+                else:
+                    lg, rc = self._prefill_request(req, cache_len)
+                    pages, n_pre = None, padded_plen(req)
+                prefill_tok += n_pre
                 if logits is None:
                     logits = torch.zeros((num_slots,) + lg.shape[1:],
                                          dtype=lg.dtype, device=self.device)
-                self._claim(caches, rc, logits, lg, slot)
+                self._claim(caches, rc, logits, lg, slot, pages)
                 self._sync()
                 prefill_s += time.perf_counter() - tp
 
@@ -809,6 +990,16 @@ class ServeEngine:
             accepted = sched.record_chunk(toks, lps, tr, now,
                                           t_start=td - t0)  # (chunk, S)
             generated += int(accepted.sum())
+            if paged:
+                live = sched.uid_by_slot()
+                for slot_i, uid in uid_map.items():
+                    if live.get(slot_i) != uid:   # retired this chunk
+                        pool.release(slot_pages.pop(slot_i))
+                        # unmap before the next chunk decodes: the freed
+                        # pages may be handed out again, and a dead slot
+                        # keeps stepping (its writes must hit the trash
+                        # page)
+                        cache_reset_slot_paged(cfg, caches, slot_i)
             if tr is None:
                 continue
             masked = np.where(accepted[:, None, :, None], tr,
@@ -838,6 +1029,8 @@ class ServeEngine:
                 meter_s += time.perf_counter() - tm
 
         total_s = time.perf_counter() - t0
+        if pool is not None:
+            pool.check_leaks()     # every retire released its pages
         report = (offload_report(self._stores, self._prefetcher, snap,
                                  metered_tokens, self._offload_policy)
                   if snap is not None and traces else None)
@@ -849,6 +1042,7 @@ class ServeEngine:
             router_trace=np.concatenate(traces) if traces else None,
             plan_trace=np.stack(plans) if plans else None,
             cache_hbm_bytes=cache_hbm, prefill_tokens=prefill_tok,
+            page_report=pool.report() if pool is not None else None,
             meter_s=meter_s, capture_s=capture_s,
             stream_report=(self._stream.report()
                            if self._stream is not None else None))
@@ -878,3 +1072,22 @@ class ServeEngine:
         logits = out.logits[:, :-1].float()
         sel = logits.gather(-1, toks[:, 1:].long()[..., None])[..., 0]
         return float(torch.mean(torch.logsumexp(logits, dim=-1) - sel))
+
+
+@torch.no_grad()
+def router_trace(cfg: ModelConfig, params, tokens: np.ndarray,
+                 quantized: bool = False,
+                 kernel_impl: Optional[str] = None) -> np.ndarray:
+    """Per-token routing decisions (tokens, moe_layers, k) of one forward
+    over ``tokens`` (B, S), with exact capacity, on the device the
+    parameters live on: the trace the offload simulator replays.  (The
+    JAX package runs its train context; the port has none, and the
+    prefill context without caches routes the same.)"""
+    ctx = ExecContext(mode="prefill", quantized=quantized,
+                      exact_capacity=True, collect_trace=True,
+                      kernel_impl=kernel_impl)
+    dev = params["embed"]["tok"].device
+    out = lm.forward(params, torch.as_tensor(np.asarray(tokens, np.int32),
+                                             device=dev), cfg, ctx)
+    # (moe_layers, T, k) -> (T, layers, k)
+    return out.trace.cpu().numpy().transpose(1, 0, 2)

@@ -426,6 +426,113 @@ def test_flash_decode_kernel_gqa_group_3(dev):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+def _paged_flash_args(dev, B, H, KVH, hd, PS, MB, kind, seed):
+    """Paged flash-decode arguments (q, k_pool, v_pool, pos_pool, block,
+    cur, k_scale, v_scale): pages in random physical order; row 0 maps
+    every block (its last page partly filled), row 1 shares row 0's
+    leading pages and owns the rest of a shorter span, row 2 maps
+    nothing, row 3 maps every other block (-1 between); the trash page
+    0 holds finite garbage (rows, scales and positions)."""
+    from repro_torch.models.kvcache import _kv_quant
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    own1 = MB - MB // 3
+    P = 1 + MB + own1 + (MB + 1) // 2 + 2
+    q = torch.randn((B, H, hd), generator=g, device=dev) / math.sqrt(hd)
+    k = torch.randn((P, PS, KVH, hd), generator=g, device=dev)
+    v = torch.randn((P, PS, KVH, hd), generator=g, device=dev)
+    pos = np.full((P, PS), -1, np.int32)
+    pos[0] = rng.integers(0, MB * PS, PS)
+    perm = rng.permutation(np.arange(1, P)).astype(np.int32)
+    block = np.full((B, MB), -1, np.int32)
+    block[0] = perm[:MB]
+    block[1, :MB // 3] = perm[:MB // 3]
+    block[1, MB // 3:MB // 3 + own1 // 2] = perm[MB:MB + own1 // 2]
+    if B > 3:
+        block[3, ::2] = perm[MB + own1:MB + own1 + (MB + 1) // 2]
+    fills = [MB * PS - PS // 2 - 1, (MB // 3 + own1 // 2) * PS - 1, 0,
+             MB * PS][:B]
+    for r in range(B):
+        for j in np.nonzero(block[r] >= 0)[0]:
+            lp = j * PS + np.arange(PS)
+            pos[block[r, j]] = np.where(lp < fills[r], lp, -1)
+    cur = torch.tensor([max(f, 11) - 1 for f in fills], dtype=torch.int32,
+                       device=dev)
+    ks = vs = None
+    if kind == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    elif kind == "int8":
+        k, ks = _kv_quant(k)
+        v, vs = _kv_quant(v)
+    return (q, k, v, torch.from_numpy(pos).to(dev),
+            torch.from_numpy(block).to(dev), cur, ks, vs)
+
+
+def _gathered(args):
+    """The same call's contiguous arguments: each row's view gathered
+    from the pool (``paged_gather``)."""
+    from repro_torch.models.kvcache import paged_gather
+    q, k, v, pos, block, cur, ks, vs = args
+    cache = {"k": k, "v": v, "pos": pos, "block": block}
+    if ks is not None:
+        cache["k_scale"], cache["v_scale"] = ks, vs
+    kf, vf, pf, ksf, vsf = paged_gather(cache)
+    return q, kf, vf, pf, cur, ksf, vsf
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_paged_flash_decode_equals_gather_then_kernel(dev, kind, g, ps):
+    """The block-table mode reads the pool in place and equals, bit for
+    bit, gathering each row's view and running the contiguous kernel on
+    it (same logical S, so the same tiling and cluster); within the
+    flash-decode tolerance of the plain route."""
+    args = _paged_flash_args(dev, 4, 2 * g, 2, 128, ps, 320 // ps, kind,
+                             seed=g * 100 + ps)
+    got = fd.flash_decode_attention_paged(*args, require_kernel=True)
+    want = fd.flash_decode_attention(*_gathered(args), require_kernel=True)
+    plain = fd.flash_decode_attention_paged_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, plain, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("ps", [1, 8])
+@pytest.mark.parametrize("window", [None, 40])
+def test_paged_flash_decode_int8_odd_scale_offsets(dev, ps, window):
+    """Three kv heads and one-slot pages: a page's scale words start at
+    odd bf16 offsets in the pool and at other parities in the gathered
+    view, so each mode must pick its own half of each 4-byte word."""
+    args = _paged_flash_args(dev, 4, 3, 3, 128, ps, 96 // ps, "int8",
+                             seed=7 + ps)
+    got = fd.flash_decode_attention_paged(*args, window=window,
+                                          require_kernel=True)
+    want = fd.flash_decode_attention(*_gathered(args), window=window,
+                                     require_kernel=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        got, fd.flash_decode_attention_paged_plain(*args, window=window),
+        atol=2e-5, rtol=2e-5)
+
+
+def test_paged_flash_decode_checks_its_arguments(dev):
+    q, k, v, pos, block, cur, _, _ = _paged_flash_args(
+        dev, 4, 8, 2, 128, 16, 8, "f32", seed=3)
+    n = fd.launches.n
+    for bad in (dict(block=block.long()), dict(block=block[:2]),
+                dict(pos=pos[:, :8]), dict(k=k[:, :12], v=v[:, :12])):
+        kw = dict(q=q, k_pool=k, v_pool=v, pos_pool=pos, block=block,
+                  cur_pos=cur)
+        kw.update({("k_pool" if n_ == "k" else "v_pool" if n_ == "v"
+                    else "pos_pool" if n_ == "pos" else n_): t
+                   for n_, t in bad.items()})
+        with pytest.raises(ValueError):
+            fd.flash_decode_attention_paged(**kw, require_kernel=True)
+    assert fd.launches.n == n
+
+
 def _qmm_args(dev, M, K, N, R, bits, seed, mask_mode="half", cap=None,
               group=64):
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -798,6 +905,70 @@ def test_serve_graph_matches_eager_on_ragged_workload(dev):
     np.testing.assert_array_equal(runs[True][1].plan_trace,
                                   runs[False][1].plan_trace)
     assert len({p.tobytes() for p in runs[True][1].plan_trace}) > 1
+
+
+def _ragged(cfg, mix, seed):
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, tokens=rng.integers(2, cfg.vocab_size, (p,),
+                                               dtype=np.int32),
+                    max_new=n) for i, (p, n) in enumerate(mix)]
+
+
+def test_paged_serve_one_graph_per_envelope(dev):
+    """``serve(page_size=8)`` on a ragged workload captures one decode
+    graph for its paged envelope (slots, pages, page size, blocks) and a
+    second ragged workload in the same envelope captures none; each
+    equals the eager loop's paged serve (tokens, traces, offload
+    reports, page reports), and no page leaks."""
+    from repro_torch.serve import ServeEngine
+    cfg, qp = _served("moe")
+    stacks = [lp["moe"]["stacks"] for lp in qp["layers"] if "moe" in lp]
+    mixes = (((5, 7), (19, 4), (33, 9), (9, 3), (12, 6), (24, 5)),
+             ((33, 9), (19, 4), (24, 5), (7, 5)))
+    runs = {}
+    for graph in (True, False):
+        eng = ServeEngine(cfg, qp, quantized=True, decode_graph=graph)
+        out = []
+        for i, mix in enumerate(mixes):
+            eng.attach_offload(stacks, cache_capacity=3)
+            out.append(eng.serve(_ragged(cfg, mix, i), num_slots=3,
+                                 chunk=4, page_size=8))
+            eng._page_pool.check_leaks()
+            if graph:
+                assert eng.num_graphs == 1, i
+        runs[graph] = out
+    for a, b in zip(runs[True], runs[False]):
+        for ra, rb in zip(a.results, b.results):
+            np.testing.assert_array_equal(ra.tokens, rb.tokens)
+            np.testing.assert_array_equal(ra.trace, rb.trace)
+            np.testing.assert_allclose(ra.logprobs, rb.logprobs, rtol=1e-5,
+                                       atol=1e-5)
+        assert a.offload_report == b.offload_report
+        assert a.page_report == b.page_report
+    assert runs[True][0].cache_hbm_bytes == runs[True][1].cache_hbm_bytes
+
+
+def test_paged_decode_launches_the_block_table_kernel(dev):
+    """A paged decode step on the card launches flash-decode once per
+    layer in its block-table mode and gathers nothing: ``paged_gather``
+    is never called."""
+    from repro_torch.models import attention
+    from repro_torch.serve import ServeEngine
+    cfg, qp = _served("moe")
+    eng = ServeEngine(cfg, qp, quantized=True, decode_graph=False)
+    called = []
+    real = attention.paged_gather
+    attention.paged_gather = lambda *a: called.append(1) or real(*a)
+    try:
+        n = fd.launches.n
+        st = eng.serve(_ragged(cfg, ((9, 3), (20, 4)), 5), num_slots=2,
+                       chunk=4, page_size=16)
+    finally:
+        attention.paged_gather = real
+    assert not called
+    layers = len(qp["layers"])
+    assert fd.launches.n - n == layers * st.chunks * 4
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ booting that artifact.  Serving from the artifact must give the tokens,
 router trace, offload report and per-request bytes of serving the
 stacks ``compress.run`` returned in memory; the flags of the JAX CLI's
 unported paths raise ``NotImplementedError`` naming their ROADMAP item;
-the stream flags serve with every metered byte copied.
+the stream flags serve with every metered byte copied; ``--page-size``
+(with ``--prefix-cache``) serves the same tokens on a paged cache.
 """
 import json
 
@@ -99,11 +100,35 @@ def test_serve_cli_fixed_batch_and_in_memory_offload(capsys):
     assert "decode" in text and "controller: budget" in text
 
 
+@pytest.mark.parametrize("flags", [["--page-size", "16"],
+                                   ["--page-size", "16", "--prefix-cache"]])
+def test_serve_cli_paged(flags, capsys):
+    """``--page-size`` / ``--prefix-cache`` serve the scheduled workload
+    on a paged KV cache (the same tokens as the contiguous cache) and
+    print JAX's ``pages`` line."""
+    argv = ["--arch", ARCH, "--device", "cpu", "--requests", "3",
+            "--slots", "2", "--chunk", "2", "--max-new", "3",
+            "--prompt-len", "40"]
+    base = serve.main(argv)["stats"]
+    got = serve.main(argv + flags)
+    st = got["stats"]
+    assert [r.tokens.tolist() for r in st.results] == \
+        [r.tokens.tolist() for r in base.results]
+    assert st.page_report["page_size"] == 16
+    assert st.cache_hbm_bytes < base.cache_hbm_bytes
+    got["engine"]._page_pool.check_leaks()
+    assert "pages (" in capsys.readouterr().out
+
+
+def test_serve_cli_prefix_cache_needs_page_size():
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
+                    "--prefix-cache"])
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "ep=4"], "A13"),
     (["--budget-scope", "per_shard"], "A13"),
-    (["--page-size", "16"], "A9"),
-    (["--prefix-cache"], "A9"),
     (["--spec-k", "2"], "A11"),
     (["--drafter", "model"], "A11"),
 ])

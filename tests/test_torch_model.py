@@ -98,7 +98,8 @@ def test_serve_and_control_config_copies_match_jax():
         JControlConfig(**cc).target_bytes_per_token
     kept = {f.name for f in dataclasses.fields(ServeConfig)}
     assert kept == {"temperature", "eos_id", "cache_experts", "num_slots",
-                    "chunk_steps", "control", "stream"}
+                    "chunk_steps", "page_size", "prefix_cache", "control",
+                    "stream"}
     port, jax_ = dataclasses.asdict(ServeConfig()), \
         dataclasses.asdict(JServeConfig())
     jax_["control"].pop("budget_scope")

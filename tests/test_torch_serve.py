@@ -493,9 +493,7 @@ def test_score_matches_jax(m):
     assert abs(a - b) <= 1e-5 * max(abs(a), 1.0)
 
 
-@pytest.mark.parametrize("kw", [dict(page_size=16), dict(prefix_cache=True),
-                                dict(spec_k=2),
-                                dict(drafter="ngram")])
+@pytest.mark.parametrize("kw", [dict(spec_k=2), dict(drafter="ngram")])
 def test_serve_raises_on_unported_options(m, kw):
     eng = m["torch"][0]
     with pytest.raises(NotImplementedError, match="ROADMAP A"):

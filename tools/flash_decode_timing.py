@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Flash-decode timing on one CUDA card, alone: builds the kernels and
-runs ``chip_smoke.flash_long_timing`` (the slice's S 512 and long context
-up to S 32768, each beside its bound, its achieved rate and SDPA, and one
-call's kernels by name).
+"""Flash-decode timing on one CUDA card, alone: builds the kernels, prints
+the registers and spills of the kernel's hd 128 instantiations, and runs
+``chip_smoke.flash_long_timing`` (the slice's S 512 and long context up
+to S 32768, each beside its bound, its achieved rate and SDPA, and one
+call's kernels by name) and, where the package has the block-table mode,
+``chip_smoke.flash_paged_timing`` (paged against contiguous at one S and
+against gather + kernel).
 
     python3 tools/flash_decode_timing.py                # this tree
     python3 tools/flash_decode_timing.py --src OTHER/src
@@ -40,11 +43,19 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     cs.log(f"card {smi}; kernels from {Path(args.src).resolve()}")
     build.build_all()
+    cufilt = Path(build.nvcc_path()).with_name("cu++filt")
+    for src in ("flash_decode.cu", "flash_decode_paged.cu"):
+        for name, regs in cs.kernel_resources(build.build_log(src), cufilt):
+            if "128" in name:
+                cs.log(f"    {src}: {name}: {regs}")
     dev = torch.device("cuda")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(17)
     row = cs.flash_long_timing(dev, gen, flush)
     cs.log(f"  Mixtral f32 S 32768: {row}")
+    from repro_torch.kernels import decode_attention as fd
+    if hasattr(fd, "flash_decode_attention_paged"):
+        cs.log(f"  paged: {cs.flash_paged_timing(dev, gen, flush)}")
     return 0
 
 
