@@ -16,7 +16,10 @@ Phases:
                 plain version in f64; flash-decode at Qwen3's G 8;
                 flash-decode's block-table mode against gather + the
                 contiguous kernel, bit for bit, at Mixtral's, DeepSeek's
-                and Qwen3's shapes)
+                and Qwen3's shapes; its multi-query mode, Q 2, 4 and 8
+                query positions per row, contiguous and paged, f32, bf16
+                and int8, S 512 and 32768, against Q single-query calls
+                bit for bit)
   3. slice      Mixtral-8x7B at its published widths, depth cut to 2
                 layers, random f32 weights from a seeded generator:
                 compress on the card, ``ServeEngine.generate`` through
@@ -36,7 +39,11 @@ Phases:
                 S 512 and at long context (S 4096, 32768) for each cache
                 type, beside its byte bound, its rate and SDPA; its
                 block-table mode at S 512 and 32768 against the
-                contiguous call at the same S and against gather + kernel
+                contiguous call at the same S and against gather + kernel;
+                its multi-query mode at Q 4 (Mixtral's and DeepSeek's
+                shapes, S 512 and 32768, contiguous and paged) against 4
+                single-query calls, its bound, the plain version and SDPA
+                with an explicit mask
   5. dense      Llama-3.2-3B at its published config (28 layers, dense
                 FFNs compressed to E = 1 stacks): the same as phase 3
                 (graph against eager, the profiles, teacher-forced),
@@ -115,6 +122,24 @@ Phases:
                 full and suffix prefill profiled, and ``simulate_decode``
                 on the served trace under the paper's profiles and the
                 measured per-copy link rate (the ``projection`` line)
+ 12. spec       speculative decoding, run right after phase 11 on phase
+                8's engines (before phase 9): Mixtral-8x7B (f32, 2
+                layers), phase 8's "serve = generate" workload in rounds
+                (n-gram drafts at k 3 and 1, the 'model' and 'self'
+                drafters, a drafter that is always wrong, paged at page
+                16, streamed 'block' at LRU 3), each equal to phase 8's
+                plain serve but for first divergences at f32 near-ties,
+                one verify-graph capture per key, acceptance exactly 0
+                for the wrong drafter, metered == observed bytes
+                streamed; DeepSeek-MoE-16B (bf16, 28 layers), phase 8's
+                16 requests at k 3 twice (the second profiled for the
+                idle share), tokens equal phase 8's but for bf16 near-tie
+                first divergences (counted), then 4 of them at
+                temperature 0.8; lines start ``mixtral spec``,
+                ``deepseek spec`` (acceptance, mean accepted length,
+                lookahead accuracy and MB, draft-overhead MB, wire
+                MB/token, decode tok/s over rounds, TTFT, drafter and
+                verify ms per round)
 
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -546,7 +571,8 @@ def kernel_phase(dev):
     for S, fills in ((512, [0, 17, 289, 512]), (1024, [41, 301, 701, 1001])):
         flash_cases += [(4, 32, 4, 128, S, filled, ("f32", "bf16"), (None,))
                         for filled in (288, fills)]
-    errs["flash_decode_attention"] = paged_kernel_cases(dev, gen)
+    errs["flash_decode_attention"] = max(paged_kernel_cases(dev, gen),
+                                         multi_query_cases(dev, gen))
     for B, H, KVH, hd, S, filled, kinds, windows in flash_cases:
         for kind in kinds:
             ring = filled == "ring"
@@ -569,6 +595,79 @@ def kernel_phase(dev):
             del args, got, ref
             torch.cuda.empty_cache()
     return errs
+
+
+def multi_queries(gen, q, cur, nq):
+    """Q queries per row for a flash-decode call whose single query is
+    ``q`` (B, H, hd) at ``cur`` (B,): fresh (B, nq, H, hd) queries at
+    positions cur - nq + 1 .. cur, a verify round's k + 1 positions."""
+    b, h, hd = q.shape
+    qm = torch.randn((b, nq, h, hd), generator=gen, device=q.device) / \
+        math.sqrt(hd)
+    curm = cur[:, None] - nq + 1 + torch.arange(
+        nq, dtype=torch.int32, device=q.device)[None]
+    return qm, curm.to(torch.int32).contiguous()
+
+
+def multi_query_cases(dev, gen) -> float:
+    """Flash-decode's multi-query mode (the verify pass of speculative
+    decoding: Q query positions per row) at Mixtral's G 4 and
+    DeepSeek-MoE's G 1 (B 4, hd 128), f32, bf16 and int8 caches, Q 2, 4
+    and 8, S 512 (rows at their own positions) and 32768 (every slot
+    valid), contiguous and paged (page 16): each call equal bit for bit to
+    Q single-query calls at the same (B, S) and within DECODE_TOL of the
+    plain version.  Returns the largest |kernel - plain|."""
+    from repro_torch.kernels import decode_attention as fd
+    worst, n = 0.0, 0
+    for H, KVH in ((32, 8), (16, 16)):
+        for S in (512, 32768):
+            fills = [257, 300, 411, 512] if S == 512 else [S] * 4
+            for kind in ("f32", "bf16", "int8"):
+                for paged in (False, True):
+                    if paged:
+                        args = paged_flash_inputs(gen, dev, 4, H, KVH, 128,
+                                                  16, S // 16, kind, fills)
+                        q, cur = args[0], args[5]
+                        call = fd.flash_decode_attention_paged
+                        plain = fd.flash_decode_attention_paged_plain
+
+                        def with_q(qq, cc, a=args):
+                            return (qq,) + a[1:5] + (cc,) + a[6:]
+                    else:
+                        args = flash_inputs(gen, dev, 4, H, KVH, 128, S,
+                                            fills, kind)
+                        q, cur = args[0], args[4]
+                        call = fd.flash_decode_attention
+                        plain = fd.flash_decode_attention_plain
+
+                        def with_q(qq, cc, a=args):
+                            return (qq,) + a[1:4] + (cc,) + a[5:]
+                    for nq in (2, 4, 8):
+                        qm, curm = multi_queries(gen, q, cur, nq)
+                        got = call(*with_q(qm, curm), require_kernel=True)
+                        singles = torch.stack([call(*with_q(
+                            qm[:, i].contiguous(), curm[:, i].contiguous()),
+                            require_kernel=True) for i in range(nq)], dim=1)
+                        name = (f"flash_decode multi-query B=4 H={H} "
+                                f"KVH={KVH} hd=128 S={S} kv={kind} Q={nq} "
+                                + ("paged page=16" if paged
+                                   else "contiguous"))
+                        if not torch.equal(got, singles):
+                            fail(f"{name}: differs from {nq} single-query "
+                                 f"calls (max |diff| "
+                                 f"{float((got - singles).abs().max()):.3e})")
+                        mx = allclose_report(name, got, plain(
+                            *with_q(qm, curm)), **DECODE_TOL)
+                        worst = max(worst, mx)
+                        n += 1
+                    del args
+                    torch.cuda.empty_cache()
+            log(f"  ok  flash_decode multi-query H={H} KVH={KVH} S={S}: "
+                f"f32/bf16/int8 x Q 2/4/8 x contiguous/paged, each == its "
+                f"single-query calls bit for bit")
+    log(f"  ok  flash_decode multi-query: {n} cases, max |kernel - plain| "
+        f"{worst:.3e} (limit {DECODE_TOL})")
+    return worst
 
 
 def paged_flash_inputs(gen, dev, B, H, KVH, hd, PS, MB, kind="f32",
@@ -1232,6 +1331,120 @@ def flash_paged_timing(dev, gen, flush) -> dict:
     return out
 
 
+def multi_bytes_ops(q, k, pos, cur, ks):
+    """Least bytes and operations of one multi-query flash-decode call,
+    q (B, Q, H, hd) at cur (B, Q): the K and V rows (and int8 scales) of
+    the slots valid for any of a row's queries read once, positions, cur
+    and q read once, the output written once; per query, valid slot and
+    query head, hd multiply-adds for the score and hd for the value sum."""
+    B, Q, H, hd = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    valid = (pos[:, None, :] >= 0) & (pos[:, None, :] <= cur[:, :, None])
+    union, per = int(valid.any(1).sum()), int(valid.sum())
+    row = hd * k.element_size() + (0 if ks is None else 2)
+    nb = 2 * union * KVH * row + 4 * B * S + 4 * B * Q + 8 * B * Q * H * hd
+    return nb, 4 * per * H * hd
+
+
+def sdpa_multi_call(q, k, v, pos, cur, ks):
+    """The multi-query yardstick: one ``scaled_dot_product_attention`` call
+    with an explicit (B, 1, Q, S) mask over a contiguous cache, in its
+    float type; None for an int8 cache."""
+    import torch.nn.functional as F
+    if ks is not None:
+        return None
+    qs = q.transpose(1, 2).to(k.dtype)                 # (B, H, Q, hd)
+    kT, vT = k.transpose(1, 2), v.transpose(1, 2)
+    mask = ((pos[:, None, :] >= 0)
+            & (pos[:, None, :] <= cur[:, :, None]))[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        qs, kT, vT, attn_mask=mask, scale=1.0, enable_gqa=True)
+
+
+def flash_multi_timing(dev, gen, flush) -> dict:
+    """The multi-query mode at Q 4 (a verify round of k 3), Mixtral's
+    shape (B 4, H 32, KVH 8, f32) and DeepSeek-MoE's (H 16, KVH 16, bf16),
+    hd 128, rows at position 288 of S 512 and every slot valid at S 32768,
+    contiguous and paged (page 16): the call beside Q single-query calls
+    (one L2 flush before the Q), its byte bound, the plain version and
+    SDPA with an explicit mask over the contiguous (for paged: the
+    gathered) cache.  Returns the ``kernels`` line's multi-query keys."""
+    from repro_torch.kernels import decode_attention as fd
+    out = {}
+    nq = 4
+    for model, H, KVH, kind in (("mixtral", 32, 8, "f32"),
+                                ("deepseek", 16, 16, "bf16")):
+        for S, filled in ((512, 288), (32768, 32768)):
+            for paged in (False, True):
+                if paged:
+                    args = paged_flash_inputs(gen, dev, 4, H, KVH, 128, 16,
+                                              S // 16, kind, [filled] * 4)
+                    flat = gathered(args)
+                    q, cur = args[0], args[5]
+                    call = fd.flash_decode_attention_paged
+                    plain = fd.flash_decode_attention_paged_plain
+
+                    def with_q(qq, cc, a=args):
+                        return (qq,) + a[1:5] + (cc,) + a[6:]
+                else:
+                    args = flash_inputs(gen, dev, 4, H, KVH, 128, S, filled,
+                                        kind)
+                    flat = args
+                    q, cur = args[0], args[4]
+                    call = fd.flash_decode_attention
+                    plain = fd.flash_decode_attention_plain
+
+                    def with_q(qq, cc, a=args):
+                        return (qq,) + a[1:4] + (cc,) + a[5:]
+                qm, curm = multi_queries(gen, q, cur, nq)
+                full = with_q(qm, curm)
+                parts = [with_q(qm[:, i].contiguous(),
+                                curm[:, i].contiguous()) for i in range(nq)]
+
+                def singles(parts=parts, call=call):
+                    for a in parts:
+                        call(*a, require_kernel=True)
+                mt = time_ms(lambda: call(*full, require_kernel=True), 10,
+                             flush)
+                st = time_ms(singles, 10, flush)
+                pt = time_ms(lambda: plain(*full), 5, flush)
+                sd = sdpa_multi_call(qm, flat[1], flat[2], flat[3], curm,
+                                     flat[5])
+                lt = time_ms(sd, 10, flush)
+                got = call(*full, require_kernel=True)
+                allclose_report("flash_decode multi-query vs SDPA", got,
+                                sd().transpose(1, 2).float(),
+                                atol=1e-4 if kind == "f32" else 2e-2,
+                                rtol=1e-4 if kind == "f32" else 2e-2)
+                nb, ops = multi_bytes_ops(qm, flat[1], flat[3], curm, flat[5])
+                if paged:
+                    mapped = int((args[4] >= 0).sum()) * 16
+                    nb += 4 * mapped + 4 * args[4].numel() - 4 * 4 * S
+                bms, by = bound(nb, ops)
+                name = (f"flash_decode multi-query {model} B=4 H={H} "
+                        f"KVH={KVH} hd=128 S={S} valid={filled} {kind} "
+                        f"Q={nq} " + ("paged page=16" if paged
+                                      else "contiguous"))
+                ms = _ms(name, mt)
+                log(f"  {name}: kernel {_fmt(mt)}, {nb / ms / 1e6:.1f} GB/s "
+                    f"({100 * bms / ms:.1f}% of the bound); {nq} "
+                    f"single-query calls {_fmt(st)}; plain {_fmt(pt)}; SDPA "
+                    f"(explicit mask, {'gathered' if paged else 'the'} "
+                    f"cache) {_fmt(lt)}; bound {bms:.4f} ms ({by}; "
+                    f"{nb / 1e6:.2f} MB)")
+                pre = (("" if model == "mixtral" else "deepseek_")
+                       + "multi_" + ("paged_" if paged else "")
+                       + ("long_" if S > 512 else ""))
+                out.update({pre + "ms": ms,
+                            pre + "singles_ms": _ms(name + " singles", st),
+                            pre + "bound_ms": bms,
+                            pre + "plain_ms": _ms(name + " plain", pt),
+                            pre + "library_ms": _ms(name + " SDPA", lt)})
+                del args, flat, full, parts, got
+                torch.cuda.empty_cache()
+    return out
+
+
 def fused_crossover(dev, gen, st, cfg, flush, proj):
     """One fused projection on dispatch-like inputs (C = T tokens, top-k of
     E experts) on both main-kernel paths: {T: {path: device ms}}, the
@@ -1374,6 +1587,8 @@ def timing_phase(dev, sl):
                 f"{cl}: {cap(cl)}" for cl in fd.CLUSTERS) + f"; {sms} SMs")
     table["flash_decode_attention"].update(flash_long_timing(dev, gen, flush))
     table["flash_decode_attention"].update(flash_paged_timing(dev, gen,
+                                                              flush))
+    table["flash_decode_attention"].update(flash_multi_timing(dev, gen,
                                                               flush))
     return table
 
@@ -2584,6 +2799,264 @@ def admission_profile(eng, cfg) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: speculative decoding (run after phase 11 on phase 8's engines)
+# ---------------------------------------------------------------------------
+
+class NeverRight:
+    """A drafter that always proposes one token: with a token that no
+    greedy stream of the workload emits, every draft is rejected."""
+
+    def __init__(self, token: int):
+        self.token = token
+
+    def reset_slot(self, slot, toks):
+        pass
+
+    def observe(self, slot, toks):
+        pass
+
+    def propose_all(self, num_slots, k):
+        return np.full((num_slots, k), self.token, np.int32)
+
+
+def spec_line(name: str, st, base=None, idle=None) -> None:
+    """Log one speculative serve's numbers (``base``: the plain serve of
+    the same workload, for wire bytes and decode tok/s)."""
+    sp, rep = st.spec_report, st.offload_report
+    tok = max(rep["tokens"], 1)
+    slot_rounds = sp["drafted_tokens"] / sp["spec_k"]
+    la = sp["lookahead_accuracy"]
+    log(f"  {name}: acceptance {sp['acceptance_rate']:.4f} "
+        f"({sp['accepted_draft_tokens']}/{sp['drafted_tokens']} drafts over "
+        f"{sp['rounds']} rounds), mean accepted length "
+        f"{1 + sp['accepted_draft_tokens'] / max(slot_rounds, 1):.4f} "
+        f"tokens per slot-round; lookahead accuracy "
+        f"{'n/a' if la is None else format(la, '.4f')}, lookahead "
+        f"{sp['lookahead_prefetch_bytes'] / 1e6:.2f} MB, draft overhead "
+        f"{sp['draft_overhead_bytes'] / 1e6:.2f} MB "
+        f"({sp['draft_overhead_bytes'] / tok / 1e6:.4f} MB/token); wire "
+        f"{rep['bytes_per_token'] / 1e6:.4f} MB/token"
+        + ("" if base is None else
+           f" (plain serve "
+           f"{base.offload_report['bytes_per_token'] / 1e6:.4f})")
+        + f"; decode {st.generated_tokens / st.decode_s:.2f} tok/s over "
+        f"rounds"
+        + ("" if base is None else
+           f" (plain serve {base.generated_tokens / base.decode_s:.2f} in "
+           f"chunks)")
+        + f"; TTFT p50 {st.ttft_percentiles()[50.0] * 1e3:.1f} ms; drafter "
+        f"{st.draft_s * 1e3 / st.chunks:.3f} host ms/round, verify round "
+        f"{(st.decode_s - st.draft_s) * 1e3 / st.chunks:.3f} ms/round; "
+        f"capture {st.capture_s:.3f} s"
+        + ("" if idle is None else f"; card idle share {idle:.3f}"))
+
+
+def token_divergence(name: str, a, b, tol: float) -> tuple:
+    """Requests of two serve runs of one workload whose tokens differ:
+    each must first differ at a near-tie of ``a``'s distribution (each
+    run's probability of its own greedy token within ``tol`` times the
+    larger, as ``paged_divergence`` reads them).  Returns ({uid: first
+    differing token step}, the number of requests whose router traces
+    differ before any token does: bf16 router near-ties)."""
+    first, flips = {}, 0
+    for x, y in zip(a.results, b.results):
+        n = min(len(x.tokens), len(y.tokens))
+        bad = np.nonzero(x.tokens[:n] != y.tokens[:n])[0]
+        t = int(bad[0]) if bad.size else n
+        flips += bool((x.trace[:t] != y.trace[:t]).any())
+        if not bad.size and len(x.tokens) == len(y.tokens):
+            continue
+        pa = math.exp(float(x.logprobs[min(t, len(x.tokens) - 1)]))
+        pb = math.exp(float(y.logprobs[min(t, len(y.tokens) - 1)]))
+        if abs(pa - pb) > tol * max(pa, pb):
+            fail(f"{name}: request {x.uid} first differs at token {t} with "
+                 f"p {pa:.6f} against {pb:.6f}: no near-tie")
+        first[x.uid] = t
+    return first, flips
+
+
+def unseen_token(vocab: int, *streams) -> int:
+    """The first token id that none of ``streams`` (token arrays) holds."""
+    seen = set(int(t) for a in streams for t in np.asarray(a).reshape(-1))
+    return next(t for t in range(2, vocab) if t not in seen)
+
+
+def spec_mixtral(dev, mx, sv8, counters) -> dict:
+    """Phase 3's Mixtral-8x7B (f32, 2 layers), phase 8's "serve =
+    generate" workload (4 prompts x 256, 32 new, 4 slots, LRU 3 of 8) in
+    speculative rounds: n-gram drafts at k 3 (the counted run) and 1, the
+    'model' and 'self' (window 64) drafters, a drafter that is always
+    wrong (acceptance exactly 0), paged at page 16, and streamed 'block'
+    at LRU 3; each equal to phase 8's plain serve but for first
+    divergences at f32 near-ties, one verify capture per key, metered ==
+    observed under streaming."""
+    from repro_torch.config import StreamConfig
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.speculative import DraftModelDrafter
+    eng, stacks, cfg = mx["engine"], mx["stacks"], mx["cfg"]
+    want, prompts = sv8["resident"], sv8["prompts"]
+    NEW = 32
+
+    def reqs():
+        return [Request(uid=i, tokens=p, max_new=NEW, eos_id=None)
+                for i, p in enumerate(prompts)]
+
+    def run(e=eng, **kw):
+        e.attach_offload(stacks, policy="ours", cache_capacity=3)
+        e._controller = None
+        return e.serve(reqs(), num_slots=4, chunk=8, **kw)
+
+    g0 = eng.num_spec_graphs
+    for c in counters.values():
+        c.reset()
+    fd.multi_launches.reset()
+    runs = {"ngram k3": run(spec_k=3)}
+    launches = {n: c.n for n, c in counters.items()}
+    multi = fd.multi_launches.n
+    runs["ngram k1"] = run(spec_k=1)
+    runs["model k3"] = run(spec_k=3, drafter="model")
+    runs["self k3 (window 64)"] = run(spec_k=3, drafter=DraftModelDrafter
+                                      .self_draft(cfg, eng.params, window=64,
+                                                  quantized=True))
+    longer = eng.generate(prompts, max_new=NEW + 8)
+    tok = unseen_token(cfg.vocab_size, longer.tokens,
+                       *[r.tokens for r in want.results])
+    runs["always wrong k3"] = run(spec_k=3, drafter=NeverRight(tok))
+    runs["ngram k3 paged 16"] = run(spec_k=3, page_size=16)
+    captures = eng.num_spec_graphs - g0
+    parted = {}
+    for name, st in runs.items():
+        check_bytes(f"mixtral spec {name}", st)
+        parted[name] = paged_divergence(f"mixtral spec {name}", want, st,
+                                        NEAR_TIE, False)
+    if runs["always wrong k3"].spec_report["acceptance_rate"] != 0.0:
+        fail(f"mixtral spec: the always-wrong drafter (token {tok}) "
+             f"accepted {runs['always wrong k3'].spec_report}")
+    if captures != 3:
+        fail(f"mixtral spec captured {captures} verify graphs, expected 3 "
+             "(k 3 and k 1 contiguous, k 3 paged)")
+    if multi <= 0:
+        fail("mixtral spec: the verify pass never ran flash-decode's "
+             "multi-query mode")
+    eng._page_pool.check_leaks()
+
+    se = ServeEngine(cfg, own_moe_params(eng.params), quantized=True,
+                     device=dev)
+    se.attach_offload(stacks, policy="ours", cache_capacity=3)
+    backend = timed_backend(dev)
+    se.attach_streaming(StreamConfig(enabled=True), backend=backend)
+    st = se.serve(reqs(), num_slots=4, chunk=8, spec_k=3)
+    link = backend.take()
+    if not same_tokens_traces(st, runs["ngram k3"]):
+        fail("mixtral spec stream: tokens or traces differ from the "
+             "resident speculative serve")
+    check_oracle("mixtral spec stream", se, st)
+    check_bytes("mixtral spec stream", st)
+    if st.stream_report["degraded_tokens"]:
+        fail("mixtral spec stream: tokens degraded under 'block'")
+    log(f"  mixtral spec ({len(prompts)} prompts x {prompts.shape[1]}, "
+        f"{NEW} new, 4 slots, LRU 3 of 8): against phase 8's plain serve, "
+        + "; ".join(f"{n}: " + ("equal" if not parted[n] else
+                                f"requests part at near-ties {parted[n]}")
+                    for n in runs)
+        + f"; {sum(len(v) for v in parted.values())} near-tie divergences "
+        f"in all; {captures} verify captures (keys "
+        f"{sorted(k[:3] for k in eng.spec_graphs)}); the always-wrong "
+        f"drafter (token {tok}) accepted 0; wrapper launches of the k 3 run "
+        f"{launches}, {multi} of flash-decode's in its multi-query mode; "
+        f"streamed 'block' equals the resident k 3 run, metered == observed")
+    for name, r in runs.items():
+        spec_line(f"mixtral spec {name}", r, want)
+    spec_line("mixtral spec stream block k3", st, want)
+    stream_line("mixtral spec stream block k3", st, link)
+    del se, backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "eager_launches": {}, "multi": multi}
+
+
+def spec_deepseek(dev, ds, resident, counters) -> dict:
+    """Phase 7's DeepSeek-MoE-16B (bf16, 28 layers), phase 8's 16 requests
+    (prompts 64..512, 4 slots, LRU 16 of 64) with n-gram drafts at k 3,
+    twice (the first captures the verify graph, the second is profiled
+    for the card's idle share; the two identical): tokens equal phase 8's
+    plain run but for first divergences at bf16 near-ties, whose count is
+    printed; then 4 of the requests at temperature 0.8."""
+    import dataclasses
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.serve import synthetic_workload
+    eng, stacks, cfg = ds["engine"], ds["stacks"], ds["cfg"]
+
+    def workload():
+        return synthetic_workload(16, cfg.vocab_size, max_new=32,
+                                  min_len=64, max_len=512, seed=7)
+
+    def run(reqs=None):
+        eng.attach_offload(stacks, policy="ours", cache_capacity=16)
+        eng._controller = None
+        torch.cuda.synchronize()
+        return eng.serve(workload() if reqs is None else reqs, num_slots=4,
+                         chunk=8, spec_k=3)
+
+    g0 = eng.num_spec_graphs
+    for c in counters.values():
+        c.reset()
+    fd.multi_launches.reset()
+    a1 = run()
+    launches = {n: c.n for n, c in counters.items()}
+    multi = fd.multi_launches.n
+    a2, busy_ms, _h2d, n_dev, wall = device_busy(run)
+    idle = 1 - busy_ms / 1e3 / a2.total_s
+    if not same_serve(a1, a2, plans=False):
+        fail("deepseek spec: two runs of one workload differ")
+    if eng.num_spec_graphs - g0 != 1:
+        fail(f"deepseek spec captured {eng.num_spec_graphs - g0} verify "
+             "graphs, expected 1")
+    if multi <= 0:
+        fail("deepseek spec: the verify pass never ran flash-decode's "
+             "multi-query mode")
+    check_bytes("deepseek spec", a1)
+    parted, flips = token_divergence("deepseek spec", resident, a1,
+                                     NEAR_TIE_BF16)
+    log(f"  deepseek spec (phase 8's 16 requests, k 3, n-gram, LRU 16 of "
+        f"64): two runs identical; "
+        + ("tokens equal phase 8's plain run" if not parted else
+           f"{len(parted)} requests' tokens part from phase 8's plain run "
+           f"at bf16 near-ties (first token steps {parted}); the rest "
+           f"equal")
+        + f"; {len(parted)} near-tie token divergences; router traces "
+        f"differ before any token in {flips} of 16 requests (bf16 router "
+        f"near-ties: the verify pass's projections run at M 16, the plain "
+        f"step's at M 4); 1 verify capture; card "
+        f"busy {busy_ms / 1e3:.3f} s of the profiled run's "
+        f"{a2.total_s:.3f} s ({n_dev} device ops, {wall:.1f} s with the "
+        f"profiler); wrapper launches {launches}, {multi} of flash-decode's "
+        f"in its multi-query mode")
+    spec_line("deepseek spec k3", a1, resident)
+    spec_line("deepseek spec k3 profiled", a2, resident, idle)
+    serve_line("deepseek spec k3", a1)
+
+    old = eng.scfg
+    try:
+        eng.scfg = dataclasses.replace(old, temperature=0.8)
+        hot = run(workload()[:4])
+    finally:
+        eng.scfg = old
+    for r in hot.results:
+        if not np.all(np.isfinite(r.logprobs)) or not (
+                r.gen_tokens == 32 or r.finish_reason == "eos"):
+            fail(f"deepseek spec temperature 0.8: request {r.uid} gave "
+                 f"{r.gen_tokens} tokens ({r.finish_reason}), finite "
+                 f"log-probs {bool(np.all(np.isfinite(r.logprobs)))}")
+    log(f"  deepseek spec temperature 0.8 (4 of the requests, k 3): "
+        f"{[r.gen_tokens for r in hot.results]} tokens, log-probs finite")
+    spec_line("deepseek spec k3 temperature 0.8", hot)
+    return {"launches": launches, "eager_launches": {}, "multi": multi,
+            "idle": idle}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the entry points (compress CLI -> artifact -> serve CLI)
 # ---------------------------------------------------------------------------
 
@@ -3069,8 +3542,6 @@ def main() -> int:
     t11 = time.perf_counter()
     log("  -- Mixtral-8x7B (phase 3's engine, f32)")
     paged = {"mixtral_paged": paged_mixtral(dev, mixtral, counters)}
-    del mixtral
-    torch.cuda.empty_cache()
     log("  -- DeepSeek-MoE-16B (phase 7's engine, bf16)")
     paged["deepseek_paged"] = paged_deepseek(
         dev, ds, served["deepseek_serve"]["resident"], counters, link_gbs)
@@ -3080,6 +3551,27 @@ def main() -> int:
                 fail(f"{name}: {kname} was never launched: {sv['launches']}")
     served.update(paged)
     log(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    log("== phase 12: speculative decoding (on phase 8's engines, before "
+        "phase 9)")
+    t12 = time.perf_counter()
+    log("  -- Mixtral-8x7B (phase 3's engine, f32)")
+    spec = {"mixtral_spec": spec_mixtral(dev, mixtral,
+                                         served["mixtral_serve"], counters)}
+    del mixtral
+    torch.cuda.empty_cache()
+    log("  -- DeepSeek-MoE-16B (phase 7's engine, bf16)")
+    spec["deepseek_spec"] = spec_deepseek(
+        dev, ds, served["deepseek_serve"]["resident"], counters)
+    for name, sv in spec.items():
+        for kname in ("fused_expert_matmul", "flash_decode_attention"):
+            if sv["launches"].get(kname, 0) <= 0:
+                fail(f"{name}: {kname} was never launched: {sv['launches']}")
+    table["flash_decode_attention"]["launches_multi_query"] = {
+        name: sv.pop("multi") for name, sv in spec.items()}
+    spec["deepseek_spec"].pop("idle")
+    served.update(spec)
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
     del ds
     torch.cuda.empty_cache()
 

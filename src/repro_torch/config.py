@@ -179,10 +179,33 @@ class StreamConfig:
 
 
 @dataclass(frozen=True)
+class SpecConfig:
+    """Speculative decoding (serve/speculative.py).
+
+    ``k`` > 0 turns each serve-loop iteration into a draft/verify round:
+    a drafter proposes ``k`` continuations per slot, one batched target
+    pass scores all ``k+1`` positions, and rejection sampling keeps a
+    per-slot prefix — token-identical to autoregressive decode at
+    temperature 0, distribution-preserving otherwise.  The verify pass's
+    router trace doubles as the lookahead routing oracle that warms the
+    expert stores for not-yet-verified tokens.
+    """
+    k: int = 0                         # drafted tokens per round (0 = off)
+    drafter: str = "ngram"             # ngram | model | self
+    ngram_order: int = 3               # longest backoff context is order-1 tokens
+    draft_window: int = 32             # model drafter: tail tokens re-read per step
+
+    def __post_init__(self):
+        assert self.k >= 0, self.k
+        assert self.drafter in ("ngram", "model", "self"), self.drafter
+        assert self.ngram_order >= 2, self.ngram_order
+        assert self.draft_window >= 1, self.draft_window
+
+
+@dataclass(frozen=True)
 class ServeConfig:
     """The serving knobs the port reads (the JAX ``ServeConfig`` fields
-    of the same names and defaults; speculative decoding is not ported
-    yet)."""
+    of the same names and defaults)."""
     temperature: float = 0.0
     eos_id: int = 1
     cache_experts: int = 4             # device-resident expert cache per layer
@@ -203,3 +226,6 @@ class ServeConfig:
     # true async expert streaming; when enabled, attach_offload attaches
     # the transfer engine (it feeds the same byte meters)
     stream: StreamConfig = field(default_factory=StreamConfig)
+    # speculative decoding (serve/speculative.py); k = 0 keeps the plain
+    # decode loop
+    spec: SpecConfig = field(default_factory=SpecConfig)

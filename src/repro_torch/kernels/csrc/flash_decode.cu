@@ -75,6 +75,16 @@
 // instantiations are a library of their own (flash_decode_paged.cu
 // includes this file with FD_PAGED 1), so the two build in parallel.
 //
+// Multi-query mode (NQ > 1 query positions per row, each with its own
+// position: the verify pass of speculative decoding): each (row, query)
+// pair is a virtual row, blockIdx.z = b * NQ + i, that reads row b's K/V
+// (or its block-table row) and runs exactly the tiling, online softmax
+// and cluster merge of a single-query call at position cur_pos[b][i].
+// The host gives it the cluster size a single-query call at the same
+// (B, S) takes (not one sized for B * NQ rows), so each query's output
+// equals that call's bit for bit.  The NQ queries of a row read its K/V
+// NQ times (no tile is shared between them: ROADMAP B7).
+//
 // A row with no valid slot gives what the plain version and the TPU
 // kernel give there, since their softmax runs over masked scores that are
 // all equal: the mean over the row's S slots of V (times v_scale for an
@@ -102,6 +112,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kMaxStages = 4;          // K/V ring depth of each warp
 constexpr int kStageBytes = 16384;     // K + V bytes of one block-wide stage
 constexpr int kMaxCluster = 8;
+constexpr int kMaxQueries = 8;         // query positions per row
 constexpr float NEG = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -240,9 +251,10 @@ __device__ __forceinline__ void load_elems(const char* p, float (&out)[N]) {
   }
 }
 
-// q (B,H,HD) f32 pre-scaled; k/v (B,S,KVH,HD) T; ks/vs (B,S,KVH) bf16 or
-// null; kv_pos (B,S) i32; cur (B,) i32; out (B,H,HD) f32.  Grid (CL, KVH,
-// B) in clusters of (CL, 1, 1); G real query heads per kv head (<= GP).
+// q (B,NQ,H,HD) f32 pre-scaled; k/v (B,S,KVH,HD) T; ks/vs (B,S,KVH) bf16
+// or null; kv_pos (B,S) i32; cur (B,NQ) i32; out (B,NQ,H,HD) f32.  Grid
+// (CL, KVH, B * NQ) in clusters of (CL, 1, 1); G real query heads per kv
+// head (<= GP).
 // PAGED: block (B, S / PS) i32, and k/v (P,PS,KVH,HD), ks/vs (P,PS,KVH),
 // kv_pos (P,PS) a page pool of n_rows = P * PS rows.
 template <typename T, int HD, int GP, bool PAGED>
@@ -255,7 +267,7 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ cur_pos,
                     const int* __restrict__ block, float* __restrict__ out,
                     int S, int H, int KVH, int G, int window, int PS,
-                    int n_rows) {
+                    int n_rows, int NQ) {
   using Gm = Geo<T, HD, GP, PAGED>;
   constexpr int SPW = Gm::SPW, LPS = Gm::LPS, EPV = Gm::EPV, EPL = Gm::EPL;
   constexpr int ST = Gm::ST, PT = Gm::PT, STAGE = Gm::STAGE, STRIDE = Gm::STRIDE;
@@ -269,11 +281,12 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   cg::cluster_group cluster = cg::this_cluster();
   const int CL = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // vb: the virtual row (row b, query vb % NQ); K/V are row b's
+  const int kvh = blockIdx.y, vb = blockIdx.z, b = vb / NQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const bool scaled = ks != nullptr;
   const size_t n_scales = PAGED ? (size_t)n_rows * KVH
-                                : (size_t)gridDim.z * S * KVH;
+                                : (size_t)(gridDim.z / NQ) * S * KVH;
   // PAGED: log2(PS), this row's block-table row, and the flat pool row of
   // slot s (an unmapped entry reads page 0; its position is forced -1)
   const int ps_log2 = PAGED ? 31 - __clz(PS) : 0;
@@ -477,9 +490,9 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int t = 0; t < ST; ++t) copy_pos(t);
   cp_async_commit();
-  const int cur = cur_pos[b];
+  const int cur = cur_pos[vb];
   for (int i = tid; i < GP * HD; i += kThreads)
-    q_s[i] = i / HD < G ? q[((size_t)b * H + (size_t)kvh * G) * HD + i] *
+    q_s[i] = i / HD < G ? q[((size_t)vb * H + (size_t)kvh * G) * HD + i] *
                               kLog2e : 0.f;
   cp_async_wait<0>();
   __syncthreads();                  // q_s; every lane's positions
@@ -542,7 +555,7 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kMaxCluster; ++r)
     if (r < CL) Ltot += rbm(r)[GP];                    // head 0's l
-  float* orow = out + ((size_t)b * H + (size_t)kvh * G) * HD;
+  float* orow = out + ((size_t)vb * H + (size_t)kvh * G) * HD;
   if (Ltot > 0.f) {
     for (int idx = rank * kThreads + tid; idx < G * HD; idx += CL * kThreads) {
       // every rank's values loaded at once, then summed in rank order
@@ -599,10 +612,10 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD, int GP, bool PAGED>
-cudaLaunchConfig_t make_config(cudaLaunchAttribute* attr, int cl, int B,
+cudaLaunchConfig_t make_config(cudaLaunchAttribute* attr, int cl, int rows,
                                int KVH, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl, KVH, B);
+  cfg.gridDim = dim3(cl, KVH, rows);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = Geo<T, HD, GP, PAGED>::SMEM;
   cfg.stream = stream;
@@ -629,17 +642,18 @@ template <typename T, int HD, int GP, bool PAGED>
 int launch_mode(const float* q, const void* k, const void* v, const void* ks,
                 const void* vs, const int* kv_pos, const int* cur_pos,
                 const int* block, float* out, int B, int S, int H, int KVH,
-                int window, int cl, int PS, int n_rows, cudaStream_t stream) {
+                int window, int cl, int PS, int n_rows, int nq,
+                cudaStream_t stream) {
   int rc = prepare<T, HD, GP, PAGED>();
   if (rc != 0) return rc;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      make_config<T, HD, GP, PAGED>(attr, cl, B, KVH, stream);
+      make_config<T, HD, GP, PAGED>(attr, cl, B * nq, KVH, stream);
   rc = (int)cudaLaunchKernelEx(
       &cfg, flash_decode_kernel<T, HD, GP, PAGED>, q, static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const __nv_bfloat16*>(ks),
       static_cast<const __nv_bfloat16*>(vs), kv_pos, cur_pos, block, out, S, H,
-      KVH, H / KVH, window, PS, n_rows);
+      KVH, H / KVH, window, PS, n_rows, nq);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
@@ -709,8 +723,9 @@ inline bool cluster_ok(int cl) {
 }
 
 inline bool args_ok(int B, int S, int H, int KVH, int cl, int kv_kind,
-                    const void* k_scale, const void* v_scale) {
+                    const void* k_scale, const void* v_scale, int nq) {
   return KVH > 0 && H % KVH == 0 && B > 0 && S > 0 && cluster_ok(cl) &&
+         nq >= 1 && nq <= kMaxQueries &&
          (kv_kind == 2) == (k_scale != nullptr && v_scale != nullptr);
 }
 
@@ -720,18 +735,21 @@ extern "C" {
 
 #if !FD_PAGED
 // kv_kind: 0 = f32 cache, 1 = bf16 cache, 2 = int8 cache with bf16 scales.
-// out (B,H,HD) f32.  Requires HD in {32, 64, 128, 256}, H/KVH <= 8, and
-// cl (blocks per (row, kv-head), a cluster) in {1, 2, 4, 8}.
+// q (B,nq,H,HD), cur_pos (B,nq), out (B,nq,H,HD) f32: nq query positions
+// per row (1 = single-query decode).  Requires HD in {32, 64, 128, 256},
+// H/KVH <= 8, nq in 1..8, and cl (blocks per (row, kv-head), a cluster)
+// in {1, 2, 4, 8}.
 int flash_decode_forward(const float* q, const void* k, const void* v,
                          const void* k_scale, const void* v_scale,
                          const int* kv_pos, const int* cur_pos, float* out,
                          int B, int S, int H, int KVH, int HD, int window,
-                         int cl, int kv_kind, cudaStream_t stream) {
-  if (!args_ok(B, S, H, KVH, cl, kv_kind, k_scale, v_scale))
+                         int cl, int kv_kind, int nq, cudaStream_t stream) {
+  if (!args_ok(B, S, H, KVH, cl, kv_kind, k_scale, v_scale, nq))
     return (int)cudaErrorInvalidValue;
   return dispatch<Launch>(kv_kind, HD, H / KVH, q, k, v, k_scale, v_scale,
                           kv_pos, cur_pos, static_cast<const int*>(nullptr),
-                          out, B, S, H, KVH, window, cl, 0, B * S, stream);
+                          out, B, S, H, KVH, window, cl, 0, B * S, nq,
+                          stream);
 }
 
 // How many clusters of cl blocks of the instantiation for (kv_kind, HD,
@@ -752,15 +770,15 @@ int flash_decode_paged_forward(const float* q, const void* k, const void* v,
                                const int* block, float* out, int B, int S,
                                int H, int KVH, int HD, int window, int cl,
                                int kv_kind, int page_size, int num_pages,
-                               cudaStream_t stream) {
-  if (!args_ok(B, S, H, KVH, cl, kv_kind, k_scale, v_scale) ||
+                               int nq, cudaStream_t stream) {
+  if (!args_ok(B, S, H, KVH, cl, kv_kind, k_scale, v_scale, nq) ||
       block == nullptr || page_size <= 0 ||
       (page_size & (page_size - 1)) != 0 || S % page_size != 0 ||
       num_pages <= 0)
     return (int)cudaErrorInvalidValue;
   return dispatch<Launch>(kv_kind, HD, H / KVH, q, k, v, k_scale, v_scale,
                           kv_pos, cur_pos, block, out, B, S, H, KVH, window,
-                          cl, page_size, num_pages * page_size, stream);
+                          cl, page_size, num_pages * page_size, nq, stream);
 }
 #endif
 

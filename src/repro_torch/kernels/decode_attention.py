@@ -10,6 +10,14 @@ whose blocks merge in distributed shared memory; see the source note
 there.  ``launch_geometry`` and ``block_slots`` mirror how the kernel
 deals out the slots.
 
+Both wrappers also take several query positions per row (the verify pass
+of speculative decoding): q (B, Q, H, hd) with a (B, Q) ``cur_pos``, Q <=
+``MAX_QUERIES``.  That is the kernel's multi-query mode: each (row,
+query) pair runs as a single-query call at its own position would, with
+the cluster size of a single-query call at the same (B, S), so each
+query's output equals that call's bit for bit; the plain version is the
+single-query one applied per query.
+
 ``flash_decode_attention_paged`` is the same attention over a paged KV
 cache (``models/kvcache.py``: a page pool plus a per-row block table).
 The kernel reads the pool through the block table in place (its
@@ -28,6 +36,8 @@ from ..models.kvcache import paged_gather
 from .build import LaunchCounter, check, load
 
 launches = LaunchCounter()
+# the launches of ``launches`` that ran the multi-query mode
+multi_launches = LaunchCounter()
 
 NEG = -2.0 ** 30
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -36,6 +46,7 @@ _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 WARPS = 4                     # kWarps: warps per block
 STAGE_BYTES = 16384           # kStageBytes: K + V bytes of a block's stage
 CLUSTERS = (8, 4, 2, 1)       # blocks per (row, kv-head), largest first
+MAX_QUERIES = 8               # kMaxQueries: query positions per row
 
 
 def flash_decode_attention_plain(q, k, v, kv_pos, cur_pos, k_scale=None,
@@ -43,7 +54,13 @@ def flash_decode_attention_plain(q, k, v, kv_pos, cur_pos, k_scale=None,
                                  ) -> torch.Tensor:
     """q: (B, H, hd) pre-scaled by 1/sqrt(hd); k/v: (B, S, KVH, hd);
     kv_pos: (B, S); cur_pos: (B,); scales: (B, S, KVH) for int8 KV.
-    Returns (B, H, hd) f32."""
+    Returns (B, H, hd) f32.  Several queries per row, q (B, Q, H, hd) and
+    cur_pos (B, Q), give (B, Q, H, hd): each query this function at its
+    own position."""
+    if q.ndim == 4:
+        return torch.stack([flash_decode_attention_plain(
+            q[:, i].contiguous(), k, v, kv_pos, cur_pos[:, i], k_scale,
+            v_scale, window) for i in range(q.shape[1])], dim=1)
     b, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -67,7 +84,7 @@ def _lib() -> ctypes.CDLL:
     lib = load("flash_decode.cu")
     if lib.flash_decode_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode_forward.argtypes = [p] * 8 + [i] * 8 + [p]
+        lib.flash_decode_forward.argtypes = [p] * 8 + [i] * 9 + [p]
         lib.flash_decode_forward.restype = i
         lib.flash_decode_max_clusters.argtypes = [i] * 4 + [
             ctypes.POINTER(i)]
@@ -81,7 +98,7 @@ def _paged_lib() -> ctypes.CDLL:
     lib = load("flash_decode_paged.cu")
     if lib.flash_decode_paged_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode_paged_forward.argtypes = [p] * 9 + [i] * 10 + [p]
+        lib.flash_decode_paged_forward.argtypes = [p] * 9 + [i] * 11 + [p]
         lib.flash_decode_paged_forward.restype = i
     return lib
 
@@ -146,7 +163,8 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor,
                            v_scale: Optional[torch.Tensor] = None, *,
                            window: Optional[int] = None,
                            require_kernel: bool = False) -> torch.Tensor:
-    """(B, H, hd) f32 decode attention; arguments as in the plain version.
+    """(B, H, hd) f32 decode attention, or (B, Q, H, hd) for q (B, Q, H,
+    hd) and cur_pos (B, Q); arguments as in the plain version.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version, unless ``require_kernel`` asks for the kernel.  A row
@@ -168,10 +186,10 @@ def flash_decode_attention_paged_plain(q, k_pool, v_pool, pos_pool, block,
                                        ) -> torch.Tensor:
     """The plain route of paged decode attention: each row's view gathered
     from the pool through ``block`` (``paged_gather``), then the
-    contiguous plain version.  q: (B, H, hd) pre-scaled; k_pool/v_pool:
-    (P, PS, KVH, hd); pos_pool: (P, PS); block: (B, max_blocks) int32 (-1
-    = unmapped); scales: (P, PS, KVH) for an int8 pool.  Returns (B, H,
-    hd) f32."""
+    contiguous plain version.  q: (B, H, hd) pre-scaled, or (B, Q, H, hd)
+    with cur_pos (B, Q); k_pool/v_pool: (P, PS, KVH, hd); pos_pool: (P,
+    PS); block: (B, max_blocks) int32 (-1 = unmapped); scales: (P, PS,
+    KVH) for an int8 pool.  Returns (B, H, hd) (or (B, Q, H, hd)) f32."""
     cache = {"k": k_pool, "v": v_pool, "pos": pos_pool, "block": block}
     if k_scale is not None:
         cache["k_scale"], cache["v_scale"] = k_scale, v_scale
@@ -189,12 +207,13 @@ def flash_decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
                                  window: Optional[int] = None,
                                  require_kernel: bool = False
                                  ) -> torch.Tensor:
-    """(B, H, hd) f32 decode attention over a paged KV cache; arguments
-    as in the plain version.  A CUDA tensor launches the kernel in its
-    block-table mode (reading the pool in place, no gather) or raises; a
-    CPU tensor runs the plain route, unless ``require_kernel`` asks for
-    the kernel.  Equal bit for bit to ``paged_gather`` followed by
-    ``flash_decode_attention`` on the card."""
+    """(B, H, hd) (or (B, Q, H, hd)) f32 decode attention over a paged
+    KV cache; arguments as in the plain version.  A CUDA tensor launches
+    the kernel in its block-table mode (reading the pool in place, no
+    gather) or raises; a CPU tensor runs the plain route, unless
+    ``require_kernel`` asks for the kernel.  Equal bit for bit to
+    ``paged_gather`` followed by ``flash_decode_attention`` on the
+    card."""
     if not q.is_cuda:
         if require_kernel:
             raise ValueError("the CUDA flash-decode kernel needs CUDA "
@@ -229,8 +248,17 @@ def _launch(q, k, v, kv_pos, cur_pos, k_scale, v_scale, window, *, block,
     """Check the arguments and launch the kernel: over a contiguous (B, S,
     KVH, hd) cache (``block`` None) or, in its block-table mode, over a
     (P, PS, KVH, hd) pool of ``s_len`` = max_blocks * PS logical slots
-    per row."""
-    b, h, hd = q.shape
+    per row; one query per row (q (B, H, hd), cur_pos (B,)) or, in the
+    multi-query mode, Q (q (B, Q, H, hd), cur_pos (B, Q))."""
+    multi = q.ndim == 4
+    b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    nq = q.shape[1] if multi else 1
+    if tuple(cur_pos.shape) != tuple(q.shape[:-2]) or not 1 <= nq <= \
+            MAX_QUERIES:
+        raise ValueError(f"q {tuple(q.shape)} takes cur_pos "
+                         f"{tuple(q.shape[:-2])} and at most {MAX_QUERIES} "
+                         f"queries per row; got cur_pos "
+                         f"{tuple(cur_pos.shape)}")
     kvh = k.shape[2]
     if k.dtype not in _KV_KIND or v.dtype != k.dtype:
         raise ValueError(f"unsupported KV dtypes {k.dtype}/{v.dtype}")
@@ -264,7 +292,7 @@ def _launch(q, k, v, kv_pos, cur_pos, k_scale, v_scale, window, *, block,
     kind = _KV_KIND[k.dtype]
     cl = launch_geometry(b * kvh, s_len, slots_per_warp(hd, k.element_size()),
                          cluster_capacity(dev, kind, hd, h // kvh))
-    out = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    out = torch.empty(tuple(q.shape), dtype=torch.float32, device=dev)
     ptrs = (tensors["q"].data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if scaled else None,
             v_scale.data_ptr() if scaled else None,
@@ -273,12 +301,14 @@ def _launch(q, k, v, kv_pos, cur_pos, k_scale, v_scale, window, *, block,
     if block is None:
         rc = _lib().flash_decode_forward(
             *ptrs, out.data_ptr(), b, s_len, h, kvh, hd, int(window or 0),
-            cl, kind, stream)
+            cl, kind, nq, stream)
         check(rc, "flash_decode_forward")
     else:
         rc = _paged_lib().flash_decode_paged_forward(
             *ptrs, block.data_ptr(), out.data_ptr(), b, s_len, h, kvh, hd,
-            int(window or 0), cl, kind, k.shape[1], k.shape[0], stream)
+            int(window or 0), cl, kind, k.shape[1], k.shape[0], nq, stream)
         check(rc, "flash_decode_paged_forward")
     launches.n += 1
+    if multi:
+        multi_launches.n += 1
     return out

@@ -31,13 +31,15 @@ between chunks:
 - ``--stream`` (with ``--offload``): async expert streaming — the experts
   live in a pinned host image and every metered byte is copied into the
   device containers the decode graph reads (``--stream-ring`` slots per
-  layer, ``--stream-miss`` block | degrade, ``--stream-fallback-bits``).
+  layer, ``--stream-miss`` block | degrade, ``--stream-fallback-bits``);
+- ``--spec-k K`` (with ``--requests``): speculative decoding, ``K``
+  drafted tokens per slot per round from ``--drafter`` (ngram | model |
+  self), verified in one pass (prints the ``speculative`` line).
 
 Everything runs on ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path).  The JAX CLI's expert-parallel mesh and speculative
-decoding are not ported: their flags raise ``NotImplementedError``
-naming the ROADMAP item.  The compile count
-becomes ``ServeEngine.num_graphs``.
+PyTorch path).  The JAX CLI's expert-parallel mesh is not ported: its
+flags raise ``NotImplementedError`` naming the ROADMAP item.  The compile
+count becomes ``ServeEngine.num_graphs`` (and ``num_spec_graphs``).
 """
 from __future__ import annotations
 
@@ -53,9 +55,7 @@ from .compress import PARAMS_INIT
 
 # flags of the JAX CLI whose serving paths are not ported: the ROADMAP
 # item each waits for
-_UNPORTED = {"mesh": "A13 (expert parallelism)",
-             "spec_k": "A11 (speculative decoding)",
-             "drafter": "A11 (speculative decoding)"}
+_UNPORTED = {"mesh": "A13 (expert parallelism)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,11 +86,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="share physical KV pages across requests with a "
                          "common prompt prefix (needs --page-size)")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="speculative draft length (not ported: ROADMAP "
-                         "A11)")
-    ap.add_argument("--drafter", default=None,
+                    help="speculative decoding: draft this many tokens "
+                         "per slot per round and verify them in one "
+                         "batched target pass (0 = off; needs "
+                         "--requests; token-identical at temperature 0)")
+    ap.add_argument("--drafter", default="ngram",
                     choices=("ngram", "model", "self"),
-                    help="speculative drafter (not ported: ROADMAP A11)")
+                    help="speculative drafter: backoff n-gram over each "
+                         "slot's committed stream, a small random-init "
+                         "dense draft model, or the serving model itself "
+                         "re-read over a token window (the idealized "
+                         "high-acceptance drafter)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="device to run on (cuda | cpu); cuda raises when "
@@ -170,6 +176,9 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.prefix_cache and args.page_size <= 0:
         ap.error("--prefix-cache needs --page-size (prefixes are shared "
                  "as pages)")
+    if args.spec_k > 0 and args.requests <= 0:
+        ap.error("--spec-k needs --requests (speculative rounds run "
+                 "through the continuous-batching scheduler)")
     cfg = get_config(args.arch, reduced=not args.full_config)
     if args.offload and cfg.moe is None:
         ap.error(f"--offload needs an MoE arch; {cfg.name} has none")
@@ -255,7 +264,9 @@ def run(cfg, args) -> Dict:
             max_len=args.prompt_len, seed=args.seed)
         stats = eng.serve(reqs, num_slots=args.slots, chunk=args.chunk,
                           seed=args.seed, page_size=args.page_size,
-                          prefix_cache=args.prefix_cache)
+                          prefix_cache=args.prefix_cache,
+                          spec_k=args.spec_k,
+                          drafter=args.drafter if args.spec_k > 0 else None)
         out["stats"] = stats
         lat = stats.latency_percentiles((50.0, 95.0))
         print(f"{cfg.name}: {args.requests} requests on {args.slots} slots "
@@ -264,7 +275,9 @@ def run(cfg, args) -> Dict:
               f"{stats.tokens_per_s:.1f} tok/s, "
               f"latency p50 {lat[50.0] * 1e3:.0f}ms "
               f"p95 {lat[95.0] * 1e3:.0f}ms, "
-              f"{stats.chunks} chunks, graphs {eng.num_graphs}")
+              f"{stats.chunks} chunks, graphs {eng.num_graphs}"
+              + (f" + {eng.num_spec_graphs} verify" if args.spec_k > 0
+                 else ""))
         print(f"cache: {stats.cache_hbm_bytes / 2**20:.2f} MiB HBM "
               f"({stats.cache_hbm_bytes_per_token / 2**10:.1f} KiB/token), "
               f"{stats.prefill_tokens} prefill tokens")
@@ -282,6 +295,17 @@ def run(cfg, args) -> Dict:
                   f"{rep['bytes_per_token'] / 2**10:.1f} KiB/token, "
                   f"cache hit {rep['hit_rate']:.0%}, prefetch accuracy "
                   f"{rep['prefetch_accuracy']:.0%}")
+        sp = stats.spec_report
+        if sp is not None:
+            la = sp["lookahead_accuracy"]
+            print(f"speculative (k={sp['spec_k']}, {sp['drafter']}): "
+                  f"acceptance {sp['acceptance_rate']:.0%} "
+                  f"({sp['accepted_draft_tokens']}/{sp['drafted_tokens']} "
+                  f"drafts over {sp['rounds']} rounds), lookahead "
+                  f"prefetch accuracy "
+                  f"{'n/a' if la is None else format(la, '.0%')}, "
+                  f"draft overhead "
+                  f"{sp['draft_overhead_bytes'] / 2**10:.1f} KiB")
         sr = stats.stream_report
         if sr is not None:
             print(f"stream ({sr['miss_policy']}, ring {sr['ring_slots']}): "

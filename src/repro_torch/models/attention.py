@@ -4,13 +4,17 @@ and the paged branch of the step-mode attention layer of
 ``repro/models/transformer.py``).
 
 Prefill attention is plain PyTorch (the JAX package computes it outside
-any Pallas kernel too).  Decode attention of one query token per row
-without softcap goes to the flash-decode kernel wrapper; other step-mode
-shapes (several query tokens, per-query positions, softcap) and
-``impl='ref'`` run the plain composition below.  Over a paged cache
-(``paged_decode_attention``) one query token per row goes to the
-wrapper's block-table mode, which reads the page pool in place; the
-other shapes gather each row's view first, as the JAX package does.
+any Pallas kernel too).  Step-mode attention without softcap goes to the
+flash-decode kernel wrapper for one query token per row, and for 2..8
+query tokens per row with one position each (the verify pass of
+speculative decoding: the kernel's multi-query mode, whose queries equal
+single-query calls bit for bit; the JAX package computes that pass in
+plain jnp).  Longer runs of query tokens (a suffix prefill), softcap and
+``impl='ref'`` run the plain composition below, as the JAX package
+computes them.  Over a paged cache (``paged_decode_attention``) the same
+shapes go to the wrapper's block-table mode, which reads the page pool in
+place; the other shapes gather each row's view first, as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -20,12 +24,25 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from ..kernels.decode_attention import (flash_decode_attention,
+from ..kernels.decode_attention import (MAX_QUERIES, flash_decode_attention,
                                         flash_decode_attention_paged)
 from .kvcache import paged_gather
 from .layers import softcap
 
 NEG_INF = -2.0 ** 30  # large-but-finite; keeps softmax NaN-free
+
+
+def _kernel_queries(sq: int, cur_pos: torch.Tensor) -> int:
+    """How many query positions per row the flash-decode wrapper takes
+    for ``sq`` query tokens at ``cur_pos`` positions: 0 where the shape is
+    not one of its modes, 1 for one query per row ((B,) or (B, 1)
+    positions), ``sq`` for 2..MAX_QUERIES queries with (B, sq) positions."""
+    if sq == 1 and (cur_pos.ndim == 1 or cur_pos.shape[1] == 1):
+        return 1
+    if 2 <= sq <= MAX_QUERIES and cur_pos.ndim == 2 and \
+            cur_pos.shape[1] == sq:
+        return sq
+    return 0
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -88,14 +105,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, sq, h, hd = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     impl = ops.resolve_impl(impl)
-    one_pos = cur_pos.ndim == 1 or (cur_pos.ndim == 2
-                                    and cur_pos.shape[1] == 1)
-    if impl != "ref" and sq == 1 and not attn_softcap and one_pos:
+    nq = _kernel_queries(sq, cur_pos)
+    if impl != "ref" and nq and not attn_softcap:
+        qs = q.float() * scale
         out = flash_decode_attention(
-            q[:, 0].float() * scale, k_cache, v_cache, kv_pos,
-            cur_pos.reshape(b), k_scale, v_scale, window=window,
-            require_kernel=(impl == "cuda"))
-        return out.reshape(b, 1, h, hd).to(q.dtype)
+            qs[:, 0] if nq == 1 else qs, k_cache, v_cache, kv_pos,
+            cur_pos.reshape(b) if nq == 1 else cur_pos, k_scale, v_scale,
+            window=window, require_kernel=(impl == "cuda"))
+        return out.reshape(b, sq, h, hd).to(q.dtype)
     kvh = k_cache.shape[2]
     g = h // kvh
     qg = q.reshape(b, sq, kvh, g, hd).float() * scale
@@ -118,22 +135,24 @@ def paged_decode_attention(q: torch.Tensor, cache, cur_pos: torch.Tensor, *,
                            impl: Optional[str] = None) -> torch.Tensor:
     """Step-mode attention against a paged cache (``models/kvcache.py``:
     page pool, pool-shaped ``pos`` plane, (B, max_blocks) block table),
-    after the step's writes.  One query token per row goes to
-    ``flash_decode_attention_paged`` (the kernel's block-table mode on the
-    card); several query tokens, or ``impl='ref'``, gather each row's
-    view (``paged_gather``) and run ``decode_attention``."""
+    after the step's writes.  One query token per row, and 2..8 with one
+    position each, go to ``flash_decode_attention_paged`` (the kernel's
+    block-table mode on the card); longer runs of query tokens, or
+    ``impl='ref'``, gather each row's view (``paged_gather``) and run
+    ``decode_attention``."""
     b, sq, h, hd = q.shape
     impl = ops.resolve_impl(impl)
-    one_pos = cur_pos.ndim == 1 or (cur_pos.ndim == 2
-                                    and cur_pos.shape[1] == 1)
-    if impl != "ref" and sq == 1 and one_pos:
+    nq = _kernel_queries(sq, cur_pos)
+    if impl != "ref" and nq:
         scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+        qs = q.float() * scale
         out = flash_decode_attention_paged(
-            q[:, 0].float() * scale, cache["k"], cache["v"], cache["pos"],
-            cache["block"], cur_pos.reshape(b), cache.get("k_scale"),
-            cache.get("v_scale"), window=window,
+            qs[:, 0] if nq == 1 else qs, cache["k"], cache["v"],
+            cache["pos"], cache["block"],
+            cur_pos.reshape(b) if nq == 1 else cur_pos,
+            cache.get("k_scale"), cache.get("v_scale"), window=window,
             require_kernel=(impl == "cuda"))
-        return out.reshape(b, 1, h, hd).to(q.dtype)
+        return out.reshape(b, sq, h, hd).to(q.dtype)
     k, v, pos, ks, vs = paged_gather(cache)
     return decode_attention(q, k, v, pos, cur_pos, window=window,
                             scale=scale, k_scale=ks, v_scale=vs, impl=impl)

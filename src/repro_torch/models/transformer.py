@@ -18,8 +18,9 @@ from .. import resolve_device
 from ..config import ModelConfig
 from .attention import attention, decode_attention, paged_decode_attention
 from .ffn import ffn_apply, ffn_apply_quantized
-from .kvcache import (claim_slot, dequant_scales, init_attn_cache,
-                      init_paged_attn_cache, is_paged, paged_claim,
+from .kvcache import (TRASH_PAGE, claim_slot, dequant_scales,
+                      init_attn_cache, init_paged_attn_cache, is_paged,
+                      paged_claim,
                       paged_reset, paged_seed_prefix,
                       paged_update_attn_cache, prefill_attn_cache,
                       reset_attn_cache, reset_slot, update_attn_cache)
@@ -325,6 +326,53 @@ def mask_cache_padding(cfg: ModelConfig, caches: Dict, plen: torch.Tensor
         if not is_paged(c):
             c["pos"].masked_fill_(c["pos"] >= lim, -1)
     caches["pos"].copy_(plen)
+    return caches
+
+
+def cache_rollback(cfg: ModelConfig, caches: Dict, new_len: torch.Tensor
+                   ) -> Dict:
+    """Roll a slotted cache back to ``new_len`` (B,) committed tokens, in
+    place.
+
+    Speculative decoding's verify pass appends KV for every drafted
+    token; rejection keeps only a per-row accepted prefix.  Attention
+    entries at absolute positions >= new_len are invalidated (pos -> -1)
+    and their K/V payloads (and int8 scales) are zeroed: fresh cache
+    planes are zero-filled and, with enough ring headroom, append-only,
+    so the rolled-back cache is bit-identical to one that never saw the
+    rejected suffix.  The per-row decode position becomes ``new_len``.
+
+    Paged layers mask the pool through the block table: each page takes
+    the minimum ``new_len`` over the slots whose block-table rows map it.
+    Refcount-shared prefix pages hold only positions below every owner's
+    prompt length (<= any new_len), so they are untouched; the trash page
+    is exempt, so out-of-range verify writes parked there leak no limit
+    onto it.  Every write goes into the tensors a captured graph reads.
+    Returns ``caches``."""
+    new_len = new_len.to(torch.int32)
+    imax = torch.iinfo(torch.int32).max
+    for c in caches["layers"]:
+        if is_paged(c):
+            blk = c["block"]
+            lim = torch.full((c["pos"].shape[0],), imax, dtype=torch.int32,
+                             device=blk.device)
+            # unmapped entries (-1) land on the trash page, reset after (a
+            # fill, not an indexed store of a host scalar: that would copy
+            # it to the card and sync)
+            lim.scatter_reduce_(0, blk.clamp(min=0).reshape(-1).long(),
+                                new_len[:, None].expand_as(blk).reshape(-1),
+                                "amin")
+            lim.narrow(0, TRASH_PAGE, 1).fill_(imax)
+            bad = c["pos"] >= lim[:, None]
+        else:
+            bad = c["pos"] >= new_len[:, None]
+        c["pos"].masked_fill_(bad, -1)
+        for name in ("k", "v"):
+            c[name].masked_fill_(bad[..., None, None], 0)
+        for name in ("k_scale", "v_scale"):
+            if name in c:
+                c[name].masked_fill_(bad[..., None], 0)
+    caches["pos"].copy_(new_len)
     return caches
 
 

@@ -1,5 +1,6 @@
-"""Layer-ahead expert prefetcher (related-work systems [5,19,33,42]); a
-copy of ``repro/offload/prefetch.py`` (numpy only).
+"""Layer-ahead expert prefetcher (related-work systems [5,19,33,42]) and
+the speculative lookahead prefetcher; a copy of
+``repro/offload/prefetch.py`` (numpy only).
 
 While layer l computes, predict layer l+1's experts and issue their
 fetches.  Prediction uses the previous token's routing at l+1 (decode-time
@@ -19,7 +20,7 @@ demand access, mispredictions are metered as wasted prefetch bytes
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -76,3 +77,66 @@ class LayerAheadPrefetcher:
             self.stats.useful += hit
             self.stats.wasted += len(pred) - hit
         self.prev_token[layer] = experts.copy()
+
+
+class LookaheadPrefetcher:
+    """Router-speculative lookahead prefetcher (serve/speculative.py).
+
+    The speculative verify pass computes router decisions for all k+1
+    round positions in one batched forward, so while layer l streams the
+    routing of every not-yet-verified token at layer l is already known:
+    predictions are *exact* routing, not a heuristic.  What is
+    speculative is the tokens themselves: warms issued for positions the
+    rejection sampler later discards are the attributable cost of
+    speculation, metered separately (``bytes_wasted`` = draft overhead
+    bytes) from the layer-ahead heuristic's misprediction waste.
+
+    Per round, ``begin_round`` installs the verify trace
+    (steps, layers, rows, k); ``predict(step, layer)`` returns the
+    deduplicated expert set that position touches; ``score`` splits the
+    issued prediction into useful (used by a scheduler-accepted
+    position) and wasted (rejected suffix / dead slot) and accumulates
+    the byte attribution.
+    """
+
+    def __init__(self, num_layers: int, top_k: int):
+        self.num_layers = int(num_layers)
+        self.top_k = int(top_k)
+        self.stats = PrefetchStats()
+        self.bytes_issued = 0          # all lookahead prefetch bytes fetched
+        self.bytes_wasted = 0          # subset issued for rejected positions
+        self._trace: Optional[np.ndarray] = None
+
+    def begin_round(self, trace: np.ndarray):
+        """Install one verify round's router trace, shaped
+        (steps, layers, rows, k) with masked entries < 0."""
+        t = np.asarray(trace)
+        assert t.ndim == 4 and t.shape[1] == self.num_layers, t.shape
+        self._trace = t
+
+    def predict(self, step: int, layer: int) -> Optional[np.ndarray]:
+        if self._trace is None:
+            return None
+        flat = self._trace[step, layer].reshape(-1)
+        flat = np.unique(flat[flat >= 0])
+        return flat if flat.size else None
+
+    def score(self, pred: np.ndarray, accepted_rows: np.ndarray,
+              fetched: Dict[int, int]) -> int:
+        """Score one (step, layer) prediction.  ``accepted_rows`` holds
+        the routing of the scheduler-accepted rows at that position
+        (empty when the position was rejected wholesale); ``fetched``
+        maps expert -> bytes actually moved by the warm.  Returns the
+        wasted-byte subtotal so the caller can charge the store's
+        wasted-prefetch meter."""
+        used = np.unique(accepted_rows[accepted_rows >= 0]) \
+            if accepted_rows.size else np.empty((0,), np.int64)
+        hit = len(np.intersect1d(pred, used))
+        self.stats.issued += len(pred)
+        self.stats.useful += hit
+        self.stats.wasted += len(pred) - hit
+        used_set = set(used.tolist())
+        wasted_b = sum(b for e, b in fetched.items() if e not in used_set)
+        self.bytes_issued += sum(fetched.values())
+        self.bytes_wasted += wasted_b
+        return wasted_b

@@ -380,6 +380,68 @@ def replay_decode_trace(stores: List[ExpertStore], trace: np.ndarray, *,
     return tokens, slot_bytes
 
 
+def replay_spec_round(stores: List[ExpertStore], trace: np.ndarray,
+                      accepted: np.ndarray, *,
+                      policy: str = "ours", top_n=1, rank_caps=None,
+                      lookahead=None) -> Tuple[int, np.ndarray, int]:
+    """Replay one speculative verify round into the stores.
+
+    ``trace``: (round_steps, moe_layers, B, k), the verify pass's FULL
+    router trace, covering accepted *and* rejected positions of live
+    slots (inactive scheduler slots masked to -1).  ``accepted``:
+    (round_steps, B) bool, the scheduler-accepted positions; only those
+    are demand-metered, matching the non-speculative convention that
+    masked compute never reaches the wire-byte meter.  The ``lookahead``
+    prefetcher (``LookaheadPrefetcher``) warms the stores for EVERY live
+    position: warms for positions that end up rejected are the
+    attributable cost of speculation, charged to the stores'
+    wasted-prefetch meter and returned as draft overhead bytes.
+
+    Every byte still moves through ``ExpertStore.prefetch`` /
+    ``access_token``, so under streaming the transfer engine observes a
+    real copy for every metered byte (``total_bytes ==
+    observed_copy_bytes``) with speculation on.
+
+    Returns ``(tokens, slot_bytes, draft_overhead_bytes)``.
+    """
+    trace = np.asarray(trace)
+    accepted = np.asarray(accepted, bool)
+    steps, layers, b, _ = trace.shape
+    if layers != len(stores):
+        raise ValueError(f"trace has {layers} MoE layers but "
+                         f"{len(stores)} stores attached")
+    if accepted.shape != (steps, b):
+        raise ValueError(f"accepted mask {accepted.shape} != {(steps, b)}")
+    top_ns = _per_layer(top_n, layers, 1)
+    caps = _per_layer(rank_caps, layers, None)
+    if lookahead is not None:
+        lookahead.begin_round(trace)
+    slot_bytes = np.zeros((b,), np.int64)
+    tokens = 0
+    overhead = 0
+    for t in range(steps):
+        live = trace[t, 0, :, 0] >= 0                 # (B,) slot mask
+        acc = accepted[t] & live
+        tokens += int(acc.sum())
+        if not live.any():
+            continue
+        for l in range(layers):
+            experts = trace[t, l]                     # (B, k)
+            if lookahead is not None:
+                pred = lookahead.predict(t, l)
+                fetched = (stores[l].prefetch(pred, policy)
+                           if pred is not None else {})
+                if pred is not None:
+                    wb = lookahead.score(pred, experts[acc], fetched)
+                    stores[l].wasted_prefetch_bytes += wb
+                    overhead += wb
+            for bi in np.nonzero(acc)[0]:
+                slot_bytes[bi] += stores[l].access_token(
+                    experts[bi], top_n=top_ns[l], policy=policy,
+                    rank_cap=caps[l])
+    return tokens, slot_bytes, overhead
+
+
 def meter_decode_trace(stores: List[ExpertStore], trace: np.ndarray, *,
                        policy: str = "ours", top_n=1,
                        rank_caps=None, prefetcher=None) -> Dict:

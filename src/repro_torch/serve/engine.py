@@ -1,8 +1,8 @@
 """Batched serving engine: bucketed prefill, a decode loop with sampling
 on the device, continuous-batching request serving over a contiguous or
-a paged KV cache, and the router-trace export (port of
-``repro/serve/engine.py`` without its speculative rounds and
-expert-parallel mesh).
+a paged KV cache, speculative draft/verify rounds, and the router-trace
+export (port of ``repro/serve/engine.py`` without its expert-parallel
+mesh).
 
 Prompts right-pad to a power-of-two length and the padded cache slots
 are invalidated afterwards (``mask_cache_padding``), so padded decode
@@ -39,6 +39,17 @@ captured per paged envelope (slots, pages, page size, blocks per slot):
 block tables are data, so every length mix in it replays that graph,
 whose attention reads the pool through the block table.
 
+With ``spec_k`` a serve chunk becomes a speculative round
+(``serve/speculative.py``): a drafter proposes ``spec_k`` tokens per
+slot, one verify forward over the (slots, spec_k + 1) round positions
+scores them (attention in flash-decode's multi-query mode on the card),
+and acceptance, the bonus sample, the log-probs and the in-place cache
+rollback follow on the device.  On a CUDA engine the whole round is one
+CUDA graph (``VerifyGraph``) per (slots, spec_k, temperature, cache
+bucket or paged envelope, plan or none); its randomness comes in as
+uniforms drawn before the replay.  The verify trace warms the expert
+stores through the ``LookaheadPrefetcher``.
+
 With async expert streaming attached (``attach_streaming``) the metered
 bytes are real copies: the MoE layers serve from device containers
 booted from a low-bit fallback, every byte the meter charges is copied
@@ -64,7 +75,7 @@ from ..config import ControlConfig, ModelConfig, ServeConfig
 from ..models import model as lm
 from ..models.kvcache import is_paged
 from ..models.transformer import (ExecContext, cache_claim_slot,
-                                  cache_claim_slot_paged,
+                                  cache_claim_slot_paged, cache_rollback,
                                   cache_reset_slot_paged, cache_seed_prefix,
                                   init_caches, init_paged_caches,
                                   layer_specs, mask_cache_padding,
@@ -72,6 +83,8 @@ from ..models.transformer import (ExecContext, cache_claim_slot,
 from .controller import BandwidthController, ControllerPlan
 from .paging import PagePool, prefix_page_hashes
 from .scheduler import Request, RequestResult, Scheduler
+from .speculative import (accept_drafts, make_drafter, mask_banned,
+                          sample_uniform)
 
 PROMPT_BUCKET_MIN = 16     # smallest padded-prompt length
 CACHE_BUCKET_MIN = 32      # smallest bucketed cache length
@@ -174,6 +187,11 @@ class ServeStats:
     # async streaming counters (attach_streaming): overlap efficiency,
     # transfer/stall seconds, degraded tokens, observed copies, ...
     stream_report: Optional[Dict] = None
+    # speculative rounds (spec_k > 0): acceptance, lookahead accuracy,
+    # lookahead and draft-overhead bytes (JAX's keys); None otherwise
+    spec_report: Optional[Dict] = None
+    # host seconds of decode_s spent in the drafter's proposals
+    draft_s: float = 0.0
 
     def __post_init__(self):
         # zero-token requests carry first_token_s = NaN (an explicit
@@ -239,6 +257,38 @@ class DecodeGraph:
     trace: Optional[torch.Tensor]
 
 
+class SpecRound(NamedTuple):
+    """One speculative round's device outputs (on a graph engine the
+    verify graph's own buffers: read them before the next replay)."""
+    logprobs: torch.Tensor             # (S, k+1) f32
+    trace: Optional[torch.Tensor]      # (k+1, moe_layers, S, top_k) i32
+    acc_len: torch.Tensor              # (S,) i32 committed tokens, 1..k+1
+    t1_next: torch.Tensor              # (S,) i32 next round's first token
+    # (S, V) the carry logits (the distribution after each slot's last
+    # accepted token), written in place into the logits passed in (on a
+    # graph engine into the graph's buffer, returned here)
+    logits: torch.Tensor
+    capture_s: float
+
+
+@dataclasses.dataclass
+class VerifyGraph:
+    """One speculative round, captured.  A replay reads ``tokens`` (S,
+    k+1) i32 (each slot's first token and its k drafts), ``plan``, the
+    carry ``logits`` (S, V), the uniforms ``u_acc`` (S, k) and ``u_bonus``
+    (S,) (None at temperature 0) and the resident ``caches``; it advances
+    and rolls back the caches, overwrites ``logits`` with the new carry
+    and writes the other outputs."""
+    graph: torch.cuda.CUDAGraph
+    caches: Dict
+    tokens: torch.Tensor
+    plan: Optional[torch.Tensor]
+    logits: torch.Tensor
+    u_acc: Optional[torch.Tensor]
+    u_bonus: Optional[torch.Tensor]
+    out: Tuple
+
+
 def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
            temperature: float) -> torch.Tensor:
     if temperature <= 0.0:
@@ -294,8 +344,10 @@ class ServeEngine:
         # (slots, pages, page size, blocks per slot)
         self._caches: Dict[Tuple[int, int], Dict] = {}
         self._paged_caches: Dict[Tuple[int, int, int, int], Dict] = {}
-        # captured decode steps by ``_graph_key``
+        # captured decode steps by ``_graph_key``; captured speculative
+        # rounds by (spec_k, temperature) + ``_graph_key``
         self.graphs: Dict[Tuple, DecodeGraph] = {}
+        self.spec_graphs: Dict[Tuple, VerifyGraph] = {}
         self._page_pool = None         # the last paged serve's PagePool
         self._stores = None            # per-MoE-layer ExpertStore
         self._prefetcher = None
@@ -309,6 +361,12 @@ class ServeEngine:
         paged envelope, and plan/no plan: the counterpart of the JAX
         engine's ``num_compiles['decode']``."""
         return len(self.graphs)
+
+    @property
+    def num_spec_graphs(self) -> int:
+        """Speculative-round captures so far, one per (slots, spec_k,
+        temperature, cache bucket or paged envelope, plan or none)."""
+        return len(self.spec_graphs)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -634,6 +692,7 @@ class ServeEngine:
         for li, mp in enumerate(moe_params):
             mp["stacks"] = self._stream.layer_containers(li)
         self.graphs.clear()
+        self.spec_graphs.clear()
         return self
 
     @property
@@ -691,39 +750,54 @@ class ServeEngine:
                    active: np.ndarray, seed: int = 0,
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[Decoded, int]:
-        """One decode chunk (``decode``) under streaming.
+        """One decode chunk (``decode``) under streaming (``_streamed``);
+        a re-run also restores the generator.  Returns (the ``Decoded``
+        chunk, its degraded token count)."""
+        gen_state = None if generator is None else generator.get_state()
 
-        Warm steady state (``may_miss`` False) decodes untouched.
-        Otherwise the chunk runs optimistically on the current
-        containers from a snapshot of everything the decode writes in
-        place (the caches, the logits it samples from, the generator);
-        on a true miss it either stages and re-runs from the snapshot to
-        a fixpoint (miss_policy 'block': the accepted chunk is
-        token-identical to all-resident) or accepts the fallback-served
-        chunk and stages asynchronously for later chunks ('degrade').
-        Returns (the ``Decoded`` chunk, its degraded token count)."""
+        def restore():
+            if generator is not None:
+                generator.set_state(gen_state)
+        return self._streamed(
+            logits, caches, plan, active,
+            lambda: self.decode(logits, caches, steps, seed, plan,
+                                generator), restore)
+
+    def _streamed(self, logits: torch.Tensor, caches, plan,
+                  active: np.ndarray, run, restore=None):
+        """Run ``run()`` (a decode chunk or a speculative round: anything
+        with a ``trace``) under streaming.
+
+        Warm steady state (``may_miss`` False) runs it untouched.
+        Otherwise it runs optimistically on the current containers from a
+        snapshot of everything the run writes in place (the caches and the
+        logits it samples from; ``restore`` puts back anything else, such
+        as the generator); on a true miss it either stages and re-runs
+        from the snapshot to a fixpoint (miss_policy 'block': the accepted
+        run is token-identical to all-resident) or accepts the
+        fallback-served run and stages asynchronously for later runs
+        ('degrade').  Returns (``run()``'s result, its degraded token
+        count)."""
         eng = self._stream
         eng.integrate_ready()
         top_ns, caps = eng.plan_vectors(
             len(self._stores), plan,
             self.cfg.moe.quant.top_n_restore if self.cfg.moe else 0)
         if not eng.may_miss(top_ns, caps):
-            return self.decode(logits, caches, steps, seed, plan,
-                               generator), 0
+            return run(), 0
         tensors = [t for c in caches["layers"] for t in c.values()] \
             + [caches["pos"], logits]
         snap = [t.clone() for t in tensors]
-        gen_state = None if generator is None else generator.get_state()
         out = needs = None
         for attempt in range(eng.cfg.max_reruns + 1):
             if attempt:
-                for t, s in zip(tensors, snap):
-                    t.copy_(s)
-                if generator is not None:
-                    generator.set_state(gen_state)
-            out = self.decode(logits, caches, steps, seed, plan, generator)
-            tr = out.trace.cpu().numpy()
-            needs = eng.missing_for_trace(tr, active, top_ns, caps)
+                for t, sn in zip(tensors, snap):
+                    t.copy_(sn)
+                if restore is not None:
+                    restore()
+            out = run()
+            needs = eng.missing_for_trace(out.trace.cpu().numpy(), active,
+                                          top_ns, caps)
             if not needs:
                 return out, 0
             if eng.cfg.miss_policy == "degrade":
@@ -740,6 +814,164 @@ class ServeEngine:
             [(l, e) for (l, e, _w, _f) in needs])
         eng.degraded_tokens += degraded
         return out, degraded
+
+    # -- speculative rounds ------------------------------------------------
+    def _verify(self, tokens: torch.Tensor, caches, logits: torch.Tensor,
+                plan: Optional[torch.Tensor], u_acc: Optional[torch.Tensor],
+                u_bonus: Optional[torch.Tensor]) -> Tuple:
+        """The body of one speculative round (serve/speculative.py), on
+        fixed buffers: a step-mode forward over the (S, k+1) round
+        ``tokens`` at ``caches["pos"] + arange(k+1)``, acceptance, the
+        bonus sample (the next round's first token, drawn from the carry
+        distribution with the first rejected draft banned: the residual of
+        point-mass rejection sampling), the in-place rollback of the
+        rejected cache suffix, and the per-token log-probs under the raw
+        target distributions (the first token's from ``logits``, the
+        carry that produced it).  Writes the new carry into ``logits``
+        and returns (log-probs (S, k+1), trace (k+1, moe_layers, S,
+        top_k) or None, accepted lengths (S,), next first tokens (S,)).
+        No host sync: the round can be captured."""
+        temp = self.scfg.temperature
+        s, k1 = tokens.shape
+        k = k1 - 1
+        draft = tokens[:, 1:]
+        positions = caches["pos"][:, None] + torch.arange(
+            k1, dtype=torch.int32, device=tokens.device)[None]
+        out = lm.forward(self.params, tokens, self.cfg, self._step_ctx,
+                         positions=positions, caches=caches, plan=plan)
+        la = out.logits.float()                            # (S, k+1, V)
+        acc_d = accept_drafts(la[:, :-1], draft, u_acc, temp)
+        acc_len = 1 + acc_d.sum(dim=1, dtype=torch.int32)  # in [1, k+1]
+        # the carry: the distribution after the last accepted token; for a
+        # rejection at draft i it is la[:, i], the one that rejected it
+        carry = la.gather(1, (acc_len - 1).long()[:, None, None].expand(
+            s, 1, la.shape[-1]))[:, 0]
+        first_rej = draft.gather(1, (acc_len - 1).clamp(max=k - 1)
+                                 .long()[:, None])[:, 0]
+        banned = torch.where(acc_len > k, -1, first_rej)
+        t1_next = sample_uniform(mask_banned(carry, banned), u_bonus, temp)
+        cache_rollback(self.cfg, caches, positions[:, 0] + acc_len)
+        lp_t1 = torch.log_softmax(logits.float(), dim=-1).gather(
+            1, tokens[:, :1].long())
+        lp_dr = torch.log_softmax(la[:, :-1], dim=-1).gather(
+            -1, draft.long()[..., None])[..., 0]
+        logits.copy_(carry)
+        trace = None
+        if self.collect_router_trace:
+            # (moe_layers, S * (k+1), top_k) row-major over (S, k+1) ->
+            # (k+1, moe_layers, S, top_k), the layout record_chunk and
+            # replay_spec_round read
+            tr = out.trace
+            trace = tr.reshape(tr.shape[0], s, k1, tr.shape[-1]) \
+                .permute(2, 0, 1, 3).contiguous()
+        return (torch.cat([lp_t1, lp_dr], dim=1), trace, acc_len,
+                t1_next)
+
+    def _spec_uniforms(self, generator: Optional[torch.Generator], s: int,
+                       k: int):
+        """The round's randomness, drawn before it runs: (S, k) acceptance
+        uniforms and (S,) bonus-sample uniforms from ``generator``; (None,
+        None) at temperature 0 (greedy draws nothing)."""
+        if self.scfg.temperature <= 0.0:
+            return None, None
+        u = torch.rand((s, k + 1), generator=generator, device=self.device)
+        return u[:, :k].contiguous(), u[:, k].contiguous()
+
+    def _capture_verify(self, key: Tuple, tokens: torch.Tensor, caches,
+                        logits: torch.Tensor, plan, u_acc, u_bonus):
+        """Run one eager round as the warm-up (it is the round's real
+        result), then capture the same round on the same buffers as the
+        key's graph, as ``_capture`` does for a decode step: on a side
+        stream, under ``set_sync_debug_mode('error')``; a failed capture
+        raises.  The graph's carry buffer is a copy of ``logits``.
+        Returns the warm-up's ``SpecRound`` outputs and the graph."""
+        def own(t):
+            return None if t is None else t.clone()
+        tokens, plan, u_acc, u_bonus = (own(tokens), own(plan), own(u_acc),
+                                        own(u_bonus))
+        buf = logits.clone()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        mode = torch.cuda.get_sync_debug_mode()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            with torch.cuda.stream(side):
+                warm = self._verify(tokens, caches, buf, plan, u_acc,
+                                    u_bonus)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self._verify(tokens, caches, buf, plan, u_acc, u_bonus)
+        g = self.spec_graphs[key] = VerifyGraph(
+            graph, caches, tokens, plan, buf, u_acc, u_bonus, out)
+        return warm, g
+
+    @torch.no_grad()
+    def spec_round(self, logits: torch.Tensor, caches, t1: np.ndarray,
+                   draft: np.ndarray, plan=None,
+                   generator: Optional[torch.Generator] = None,
+                   uniforms: Optional[Tuple] = None) -> SpecRound:
+        """One speculative draft/verify round (the JAX engine's
+        ``spec_round``).  ``t1``: (S,) this round's first tokens, already
+        sampled (by the previous round's bonus sample, or from the claim
+        logits at admission); ``draft``: (S, k) the drafter's proposals
+        conditioned on them; ``logits``: the carry that produced ``t1``.
+        On a graph engine the round replays its key's ``VerifyGraph``
+        (captured at the key's first round).  ``uniforms``: the round's
+        draws (``_spec_uniforms``; by default drawn from ``generator``),
+        passed in by a streamed re-run so that it reproduces the round."""
+        s, k = draft.shape
+        tokens = torch.as_tensor(np.concatenate(
+            [np.asarray(t1, np.int32).reshape(s, 1),
+             np.asarray(draft, np.int32)], axis=1), device=self.device)
+        plan_t = None if plan is None else torch.as_tensor(
+            np.asarray(plan, np.int32)).to(self.device)
+        u_acc, u_bonus = (uniforms if uniforms is not None
+                          else self._spec_uniforms(generator, s, k))
+        if not self.decode_graph:
+            out = self._verify(tokens, caches, logits, plan_t, u_acc,
+                               u_bonus)
+            return SpecRound(*out, logits, 0.0)
+        key = (k, self.scfg.temperature) + _graph_key(caches, plan)
+        g = self.spec_graphs.get(key)
+        if g is None:
+            t0 = time.perf_counter()
+            out, g = self._capture_verify(key, tokens, caches, logits,
+                                          plan_t, u_acc, u_bonus)
+            return SpecRound(*out, g.logits, time.perf_counter() - t0)
+        if g.caches is not caches:
+            raise ValueError("a verify graph replays its bucket's resident "
+                             "caches: pass the caches serve claimed into")
+        g.tokens.copy_(tokens)
+        if plan_t is not None:
+            g.plan.copy_(plan_t)
+        if logits is not g.logits:
+            g.logits.copy_(logits)
+        if u_acc is not None:
+            g.u_acc.copy_(u_acc)
+            g.u_bonus.copy_(u_bonus)
+        g.graph.replay()
+        return SpecRound(*g.out, g.logits, 0.0)
+
+    def _run_spec_round(self, logits: torch.Tensor, caches, plan,
+                        t1: np.ndarray, draft: np.ndarray,
+                        active: np.ndarray,
+                        generator: Optional[torch.Generator]
+                        ) -> Tuple[SpecRound, int]:
+        """One speculative round under streaming (``_streamed``): the miss
+        check covers the FULL round trace (which positions survive
+        rejection is unknown before the verify runs, and under 'block' the
+        accepted prefix must be token-identical to all-resident); a
+        re-run reuses the round's draws, so it reproduces the round.
+        Returns (the ``SpecRound``, its degraded token count)."""
+        draws = self._spec_uniforms(generator, *np.shape(draft))
+        return self._streamed(
+            logits, caches, plan, active,
+            lambda: self.spec_round(logits, caches, t1, draft, plan,
+                                    uniforms=draws))
 
     def _prefill_suffix(self, req_caches, tokens: np.ndarray, start: int,
                         plen: int):
@@ -872,13 +1104,22 @@ class ServeEngine:
         ``pool_pages`` overrides the allocatable pool size (excluding the
         trash page).
 
-        Speculative rounds (``spec_k``, ``drafter``) are not ported:
-        asking for them raises."""
+        ``spec_k`` (default ``scfg.spec.k``; 0 = off) replaces each chunk
+        by a speculative draft/verify round: a drafter (``'ngram'`` |
+        ``'model'`` | ``'self'`` | a reset_slot/observe/propose_all
+        object; default ``scfg.spec.drafter``) proposes ``spec_k`` tokens
+        per slot, one verify pass scores the spec_k + 1 round positions
+        (``spec_round``), rejection sampling commits a per-slot prefix
+        (token-identical to the plain loop at temperature 0, up to the
+        order of sums), and the rejected cache suffix rolls back in
+        place.  The verify trace warms the expert stores through a
+        ``LookaheadPrefetcher`` (exact in-round routing, where the plain
+        loop has the layer-ahead guess); ``ServeStats.spec_report``
+        carries the acceptance rate, lookahead accuracy and the
+        draft-overhead bytes."""
+        from ..offload.prefetch import LookaheadPrefetcher
         from ..offload.store import (offload_report, replay_decode_trace,
-                                     snapshot_offload)
-        if spec_k or drafter is not None:
-            raise NotImplementedError(
-                "speculative rounds are not ported yet (ROADMAP A11)")
+                                     replay_spec_round, snapshot_offload)
         cfg = self.cfg
         num_slots = num_slots or self.scfg.num_slots
         chunk = chunk or self.scfg.chunk_steps
@@ -886,6 +1127,30 @@ class ServeEngine:
         use_prefix = (self.scfg.prefix_cache if prefix_cache is None
                       else prefix_cache)
         paged = ps > 0
+        spec_k = self.scfg.spec.k if spec_k is None else spec_k
+        spec_on = spec_k > 0
+        spec_pf = None
+        if spec_on:
+            if drafter is None:
+                drafter = self.scfg.spec.drafter
+            if isinstance(drafter, str):
+                drafter = make_drafter(
+                    dataclasses.replace(self.scfg.spec, drafter=drafter,
+                                        k=spec_k),
+                    cfg, target_params=self.params,
+                    target_quantized=self.quantized,
+                    kernel_impl=self.kernel_impl, device=self.device)
+            next_t1 = np.zeros((num_slots,), np.int32)
+            # the admission bonus samples' own generator, as JAX keeps an
+            # admission key beside the round key
+            adm_gen = torch.Generator(device=self.device) \
+                .manual_seed(seed + 1)
+            spec_drafted = spec_acc = 0
+            chunk = spec_k + 1          # round length, for stats/reporting
+            if self._stores:
+                spec_pf = LookaheadPrefetcher(len(self._stores),
+                                              cfg.moe.top_k)
+        pf_used = spec_pf if spec_on else self._prefetcher
         reqs = list(requests)
         order = [r.uid for r in reqs]       # results in submission order
         reqs = sorted(reqs, key=lambda r: r.arrival_s)
@@ -917,8 +1182,13 @@ class ServeEngine:
                                         max_blocks)
             pool = PagePool(1 + n_alloc, ps)
         else:
+            # spec_k extra headroom: a verify pass may append up to spec_k
+            # rejected positions past a slot's final token, and the ring
+            # must absorb them without wrapping onto live entries (the
+            # rollback can only restore what the write did not destroy)
             cache_len = bucket_len(max(padded_plen(r) + r.max_new
-                                       for r in reqs) + 1)
+                                       for r in reqs) + 1
+                                   + (spec_k if spec_on else 0))
             caches = self._bucket_caches(num_slots, cache_len)
         cache_hbm = sum(t.numel() * t.element_size()
                         for c in caches["layers"] for t in c.values()) \
@@ -931,11 +1201,11 @@ class ServeEngine:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         logits = None
         top_n = cfg.moe.quant.top_n_restore if cfg.moe is not None else 1
-        snap = (snapshot_offload(self._stores, self._prefetcher)
+        snap = (snapshot_offload(self._stores, pf_used)
                 if self._stores else None)
         traces: List[np.ndarray] = []
         plans: List[np.ndarray] = []
-        prefill_s = decode_s = meter_s = capture_s = 0.0
+        prefill_s = decode_s = meter_s = capture_s = draft_s = 0.0
         chunks = generated = metered_tokens = prefill_tok = 0
         t0 = time.perf_counter()
         while sched.has_work():
@@ -961,23 +1231,55 @@ class ServeEngine:
                     logits = torch.zeros((num_slots,) + lg.shape[1:],
                                          dtype=lg.dtype, device=self.device)
                 self._claim(caches, rc, logits, lg, slot, pages)
+                if spec_on:
+                    # sample the new tenant's first token from its claim
+                    # logits now (the plain loop does this as its first
+                    # step), so the drafter conditions on it; no residual
+                    # carries across requests
+                    t1_new = int(sample(lg, adm_gen,
+                                        self.scfg.temperature)[0])
+                    next_t1[slot] = t1_new
+                    drafter.reset_slot(slot, np.asarray(req.tokens))
+                    drafter.observe(slot, np.asarray([t1_new]))
                 self._sync()
                 prefill_s += time.perf_counter() - tp
 
             plan = self._current_plan()
             plan_arr = None if plan is None else plan.as_array()
+            live_mask = sched.active_mask()
             td = time.perf_counter()
-            if self._stream is not None:
-                d, _deg = self._run_chunk(logits, caches, chunk, plan_arr,
-                                          sched.active_mask(), generator=gen)
+            acc_len = None
+            if spec_on:
+                draft_np = drafter.propose_all(num_slots, spec_k)
+                draft_s += time.perf_counter() - td
+                if self._stream is not None:
+                    r, _deg = self._run_spec_round(
+                        logits, caches, plan_arr, next_t1, draft_np,
+                        live_mask, gen)
+                else:
+                    r = self.spec_round(logits, caches, next_t1, draft_np,
+                                        plan_arr, generator=gen)
+                logits = r.logits
+                capture_s += r.capture_s
+                # the round's outputs cross to the host here, once
+                toks = np.concatenate([next_t1[:, None], draft_np], axis=1)
+                lps = r.logprobs.cpu().numpy()           # (S, k+1)
+                tr = None if r.trace is None else r.trace.cpu().numpy()
+                acc_len = r.acc_len.cpu().numpy()
+                next_t1 = r.t1_next.cpu().numpy().copy()
             else:
-                d = self.decode(logits, caches, chunk, plan=plan_arr,
-                                generator=gen)
-            logits = d.logits
-            capture_s += d.capture_s
-            toks = d.tokens.cpu().numpy()                # (S, chunk)
-            lps = d.logprobs.cpu().numpy()
-            tr = None if d.trace is None else d.trace.cpu().numpy()
+                if self._stream is not None:
+                    d, _deg = self._run_chunk(logits, caches, chunk,
+                                              plan_arr, live_mask,
+                                              generator=gen)
+                else:
+                    d = self.decode(logits, caches, chunk, plan=plan_arr,
+                                    generator=gen)
+                logits = d.logits
+                capture_s += d.capture_s
+                toks = d.tokens.cpu().numpy()            # (S, chunk)
+                lps = d.logprobs.cpu().numpy()
+                tr = None if d.trace is None else d.trace.cpu().numpy()
             decode_s += time.perf_counter() - td
             chunks += 1
             if plan is not None:
@@ -986,10 +1288,26 @@ class ServeEngine:
             now = time.perf_counter() - t0
             # per-step times interpolate from the chunk's decode start, so
             # first-token stamps land on their step instead of quantizing
-            # to the chunk boundary
+            # to the chunk boundary; a round's rejected suffix is never
+            # consumed (valid_len)
             accepted = sched.record_chunk(toks, lps, tr, now,
-                                          t_start=td - t0)  # (chunk, S)
+                                          t_start=td - t0,
+                                          valid_len=acc_len)  # (chunk, S)
             generated += int(accepted.sum())
+            if spec_on:
+                live_after = sched.uid_by_slot()
+                for i in uid_map:
+                    spec_drafted += spec_k
+                    spec_acc += int(acc_len[i]) - 1
+                    # toks[i, 0] was observed when it was sampled, so only
+                    # the accepted draft suffix is new to the drafter
+                    n_new = int(accepted[:, i].sum())
+                    if n_new > 1:
+                        drafter.observe(i, toks[i, 1:n_new])
+                    if live_after.get(i) == uid_map[i]:
+                        # the slot survives: the bonus token it commits
+                        # next round conditions the proposals now
+                        drafter.observe(i, np.asarray([next_t1[i]]))
             if paged:
                 live = sched.uid_by_slot()
                 for slot_i, uid in uid_map.items():
@@ -1008,11 +1326,25 @@ class ServeEngine:
             if self._stores:
                 tm = time.perf_counter()
                 before = sum(s.total_bytes for s in self._stores)
-                ntok, slot_bytes = replay_decode_trace(
-                    self._stores, masked, policy=self._offload_policy,
-                    top_n=top_n if plan is None else plan.top_n,
-                    rank_caps=None if plan is None else plan.rank_cap,
-                    prefetcher=self._prefetcher)
+                if spec_on:
+                    # lookahead warms cover every live round position
+                    # (rejected ones included: the wasted speculation the
+                    # report attributes); demand metering stays
+                    # accepted-only
+                    full = np.where(live_mask[None, None, :, None], tr,
+                                    -1).astype(tr.dtype)
+                    ntok, slot_bytes, _ohb = replay_spec_round(
+                        self._stores, full, accepted,
+                        policy=self._offload_policy,
+                        top_n=top_n if plan is None else plan.top_n,
+                        rank_caps=None if plan is None else plan.rank_cap,
+                        lookahead=spec_pf)
+                else:
+                    ntok, slot_bytes = replay_decode_trace(
+                        self._stores, masked, policy=self._offload_policy,
+                        top_n=top_n if plan is None else plan.top_n,
+                        rank_caps=None if plan is None else plan.rank_cap,
+                        prefetcher=self._prefetcher)
                 metered_tokens += ntok
                 sched.add_slot_bytes(slot_bytes, uid_map)
                 if self._stream is not None:
@@ -1031,9 +1363,27 @@ class ServeEngine:
         total_s = time.perf_counter() - t0
         if pool is not None:
             pool.check_leaks()     # every retire released its pages
-        report = (offload_report(self._stores, self._prefetcher, snap,
+        report = (offload_report(self._stores, pf_used, snap,
                                  metered_tokens, self._offload_policy)
                   if snap is not None and traces else None)
+        spec_report = None
+        if spec_on:
+            spec_report = {
+                "spec_k": spec_k,
+                "drafter": type(drafter).__name__,
+                "rounds": chunks,
+                "drafted_tokens": spec_drafted,
+                "accepted_draft_tokens": spec_acc,
+                # verify-pass acceptance (EOS / max_new scheduler trims
+                # excluded): the drafter-quality number
+                "acceptance_rate": spec_acc / max(spec_drafted, 1),
+                "lookahead_accuracy": (spec_pf.stats.accuracy
+                                       if spec_pf is not None else None),
+                "lookahead_prefetch_bytes": (spec_pf.bytes_issued
+                                             if spec_pf is not None else 0),
+                "draft_overhead_bytes": (spec_pf.bytes_wasted
+                                         if spec_pf is not None else 0),
+            }
         by_uid = {res.uid: res for res in sched.finished}
         return ServeStats(
             [by_uid[u] for u in order], num_slots, chunk, total_s,
@@ -1045,7 +1395,8 @@ class ServeEngine:
             page_report=pool.report() if pool is not None else None,
             meter_s=meter_s, capture_s=capture_s,
             stream_report=(self._stream.report()
-                           if self._stream is not None else None))
+                           if self._stream is not None else None),
+            spec_report=spec_report, draft_s=draft_s)
 
     def generate_many(self, prompts: Sequence[np.ndarray],
                       max_new: int = 32, *,

@@ -533,6 +533,92 @@ def test_paged_flash_decode_checks_its_arguments(dev):
     assert fd.launches.n == n
 
 
+def _multi_query(dev, q, cur, nq, seed):
+    """Q queries per row for a flash-decode call whose single query is
+    ``q`` (B, H, hd) at ``cur`` (B,): fresh (B, nq, H, hd) queries at
+    positions cur - nq + 1 .. cur (a verify round's k + 1 positions)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, hd = q.shape
+    qm_ = torch.randn((b, nq, h, hd), generator=g, device=dev) / \
+        math.sqrt(hd)
+    curm = cur[:, None] - nq + 1 + torch.arange(
+        nq, dtype=torch.int32, device=dev)[None]
+    return qm_, curm.to(torch.int32).contiguous()
+
+
+# (B, H, KVH, hd, S): Mixtral's G 4 and DeepSeek-MoE's G 1 at serve's
+# slot bucket, and Mixtral's at a long cache
+_MULTI_SHAPES = {"mixtral": (4, 32, 8, 128, 512),
+                 "deepseek": (4, 16, 16, 128, 512),
+                 "long": (2, 32, 8, 128, 8192)}
+
+
+@pytest.mark.parametrize("nq", [2, 4, 8])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("shape", list(_MULTI_SHAPES))
+def test_flash_decode_multi_query_equals_single_calls(dev, shape, kind, nq):
+    """The multi-query mode (the verify pass of speculative decoding):
+    each of a row's Q queries at its own position equals, bit for bit, a
+    single-query call at that position and the same (B, S) (the same
+    cluster size), and the plain version within the flash-decode
+    tolerance."""
+    B, H, KVH, hd, S = _MULTI_SHAPES[shape]
+    q, k, v, pos, cur, ks, vs = _flash_args(dev, B, H, KVH, hd, S, kind,
+                                            S - 100, seed=nq)
+    qm_, curm = _multi_query(dev, q, cur, nq, seed=nq + 1)
+    n = fd.launches.n
+    got = fd.flash_decode_attention(qm_, k, v, pos, curm, ks, vs,
+                                    require_kernel=True)
+    assert fd.launches.n == n + 1
+    singles = torch.stack([fd.flash_decode_attention(
+        qm_[:, i].contiguous(), k, v, pos, curm[:, i].contiguous(), ks, vs,
+        require_kernel=True) for i in range(nq)], dim=1)
+    plain = fd.flash_decode_attention_plain(qm_, k, v, pos, curm, ks, vs)
+    torch.cuda.synchronize()
+    assert got.shape == (B, nq, H, hd)
+    assert torch.equal(got, singles)
+    torch.testing.assert_close(got, plain, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("nq", [2, 4, 8])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("g", [1, 4])
+def test_paged_flash_decode_multi_query_equals_single_calls(dev, g, kind,
+                                                            nq):
+    """The multi-query mode over a page pool (page 16): bit-equal to
+    single-query block-table calls, and within tolerance of the plain
+    route (gather, then the plain version per query)."""
+    args = _paged_flash_args(dev, 4, 2 * g, 2, 128, 16, 20, kind,
+                             seed=g * 10 + nq)
+    q, k, v, pos, block, cur, ks, vs = args
+    qm_, curm = _multi_query(dev, q, cur, nq, seed=nq)
+    got = fd.flash_decode_attention_paged(qm_, k, v, pos, block, curm, ks,
+                                          vs, require_kernel=True)
+    singles = torch.stack([fd.flash_decode_attention_paged(
+        qm_[:, i].contiguous(), k, v, pos, block, curm[:, i].contiguous(),
+        ks, vs, require_kernel=True) for i in range(nq)], dim=1)
+    plain = fd.flash_decode_attention_paged_plain(qm_, k, v, pos, block,
+                                                  curm, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, singles)
+    torch.testing.assert_close(got, plain, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_decode_multi_query_checks_its_arguments(dev):
+    """More than MAX_QUERIES queries, or positions that do not match the
+    queries, raise before any launch."""
+    q, k, v, pos, cur, _, _ = _flash_args(dev, 2, 8, 2, 128, 64, "f32", 40,
+                                          seed=1)
+    n = fd.launches.n
+    qm_, curm = _multi_query(dev, q, cur, fd.MAX_QUERIES + 1, seed=2)
+    with pytest.raises(ValueError):
+        fd.flash_decode_attention(qm_, k, v, pos, curm, require_kernel=True)
+    with pytest.raises(ValueError):
+        fd.flash_decode_attention(qm_[:, :4], k, v, pos, curm[:, :3],
+                                  require_kernel=True)
+    assert fd.launches.n == n
+
+
 def _qmm_args(dev, M, K, N, R, bits, seed, mask_mode="half", cap=None,
               group=64):
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1143,3 +1229,75 @@ def test_streamed_block_serve_equals_resident_on_card(dev, cap):
     assert eng.num_graphs == 1
     for s in eng._stores:
         assert s.total_bytes == s.observed_copy_bytes
+
+
+# ---------------------------------------------------------------------------
+# speculative rounds on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_captured_verify_round_equals_eager_round(dev, temperature):
+    """Two speculative rounds from the same prefilled caches, drafts and
+    generator on a graph engine (the first captures, the second replays)
+    and on the eager loop: the same log-probs, traces, accepted lengths,
+    next tokens, carry logits and rolled-back caches, bit for bit; the
+    round ran the multi-query flash-decode mode and kernel 1, and the
+    second round captured nothing."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+    cfg, qp = _served("moe")
+    prompts = _prompts(cfg, 3, 9)
+    out = {}
+    for graph in (True, False):
+        eng = ServeEngine(cfg, qp, ServeConfig(temperature=temperature),
+                          quantized=True, decode_graph=graph)
+        logits, caches = eng.prefill(prompts, 12)
+        t1 = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        gen = torch.Generator(device=dev).manual_seed(3)
+        rounds = []
+        n = (fd.launches.n, qm.launches.n)
+        for r in range(2):
+            draft = np.random.default_rng(r).integers(
+                2, cfg.vocab_size, (3, 3)).astype(np.int32)
+            res = eng.spec_round(logits, caches, t1, draft, generator=gen)
+            logits = res.logits
+            rounds.append([t.clone() for t in (res.logprobs, res.trace,
+                                               res.acc_len, res.t1_next,
+                                               logits)])
+            t1 = res.t1_next.cpu().numpy()
+        torch.cuda.synchronize()
+        if not graph:
+            assert fd.launches.n > n[0] and qm.launches.n > n[1]
+        out[graph] = (rounds, [t.clone() for c in caches["layers"]
+                               for t in c.values()] + [caches["pos"]],
+                      eng.num_spec_graphs)
+    assert out[True][2] == 1 and out[False][2] == 0
+    for a, b in zip(out[True][0] + [out[True][1]],
+                    out[False][0] + [out[False][1]]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("page_size", [0, 16])
+def test_greedy_spec_serve_equals_plain_serve_on_card(dev, page_size):
+    """Greedy speculation through the verify graph (n-gram drafts, k 3)
+    gives the plain serve's tokens on the reduced f32 Mixtral,
+    contiguous and paged, with one verify capture for the workload."""
+    from repro_torch.serve import ServeEngine, synthetic_workload
+    cfg, qp = _served("moe")
+    stacks = [lp["moe"]["stacks"] for lp in qp["layers"] if "moe" in lp]
+
+    def workload():
+        return synthetic_workload(7, cfg.vocab_size, max_new=10, min_len=5,
+                                  max_len=60, seed=6)
+
+    eng = ServeEngine(cfg, qp, quantized=True)
+    eng.attach_offload(stacks, cache_capacity=3)
+    plain = eng.serve(workload(), num_slots=4, chunk=4, page_size=page_size)
+    eng.attach_offload(stacks, cache_capacity=3)
+    spec = eng.serve(workload(), num_slots=4, chunk=4, page_size=page_size,
+                     spec_k=3)
+    assert [r.tokens.tolist() for r in spec.results] == \
+        [r.tokens.tolist() for r in plain.results]
+    assert eng.num_spec_graphs == 1 and spec.chunk == 4
+    assert 0.0 <= spec.spec_report["acceptance_rate"] <= 1.0

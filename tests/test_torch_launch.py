@@ -6,7 +6,8 @@ router trace, offload report and per-request bytes of serving the
 stacks ``compress.run`` returned in memory; the flags of the JAX CLI's
 unported paths raise ``NotImplementedError`` naming their ROADMAP item;
 the stream flags serve with every metered byte copied; ``--page-size``
-(with ``--prefix-cache``) serves the same tokens on a paged cache.
+(with ``--prefix-cache``) serves the same tokens on a paged cache;
+``--spec-k`` / ``--drafter`` serve the same greedy tokens speculatively.
 """
 import json
 
@@ -120,6 +121,32 @@ def test_serve_cli_paged(flags, capsys):
     assert "pages (" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("flags", [
+    ["--spec-k", "2", "--drafter", "ngram"],
+    ["--spec-k", "2", "--drafter", "ngram", "--page-size", "16"],
+    ["--spec-k", "1", "--drafter", "self"],
+    ["--spec-k", "3", "--drafter", "model"]])
+def test_serve_cli_spec_k(flags, capsys):
+    """``--spec-k`` / ``--drafter`` serve the scheduled workload in
+    speculative rounds: greedy, the same tokens as the plain serve, and
+    JAX's ``speculative`` line; the self-drafter accepts every draft."""
+    base = serve.main(SERVE)["stats"]
+    st = serve.main(SERVE + flags)["stats"]
+    assert [r.tokens.tolist() for r in st.results] == \
+        [r.tokens.tolist() for r in base.results]
+    sp = st.spec_report
+    assert sp["spec_k"] == int(flags[1]) and sp["rounds"] == st.chunks
+    assert 0.0 <= sp["lookahead_accuracy"] <= 1.0
+    if "self" in flags:
+        assert sp["acceptance_rate"] == 1.0
+    assert "speculative (k=" in capsys.readouterr().out
+
+
+def test_serve_cli_spec_k_needs_requests():
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", ARCH, "--device", "cpu", "--spec-k", "2"])
+
+
 def test_serve_cli_prefix_cache_needs_page_size():
     with pytest.raises(SystemExit):
         serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
@@ -129,8 +156,6 @@ def test_serve_cli_prefix_cache_needs_page_size():
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "ep=4"], "A13"),
     (["--budget-scope", "per_shard"], "A13"),
-    (["--spec-k", "2"], "A11"),
-    (["--drafter", "model"], "A11"),
 ])
 def test_unported_flags_name_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=item):

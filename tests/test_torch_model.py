@@ -72,21 +72,29 @@ def _check_config_copy(jcfg, tcfg):
 
 def test_serve_and_control_config_copies_match_jax():
     """``ControlConfig`` is a copy without ``budget_scope`` (it budgets
-    expert-parallel serving, not ported); ``StreamConfig`` is a copy
-    (fields, defaults, asserts); ``ServeConfig`` keeps a subset of the
-    JAX fields, each with the JAX default (``control`` and ``stream``
-    included)."""
+    expert-parallel serving, not ported); ``StreamConfig`` and
+    ``SpecConfig`` are copies (fields, defaults, asserts); ``ServeConfig``
+    keeps a subset of the JAX fields, each with the JAX default
+    (``control``, ``stream`` and ``spec`` included)."""
     from repro.config import ControlConfig as JControlConfig
     from repro.config import ServeConfig as JServeConfig
+    from repro.config import SpecConfig as JSpecConfig
     from repro.config import StreamConfig as JStreamConfig
-    from repro_torch.config import ControlConfig, ServeConfig, StreamConfig
-    assert [(f.name, f.default) for f in dataclasses.fields(StreamConfig)] \
-        == [(f.name, f.default) for f in dataclasses.fields(JStreamConfig)]
-    for bad in (dict(miss_policy="drop"), dict(ring_slots=0)):
-        with pytest.raises(AssertionError):
-            JStreamConfig(**bad)
-        with pytest.raises(AssertionError):
-            StreamConfig(**bad)
+    from repro_torch.config import (ControlConfig, ServeConfig, SpecConfig,
+                                    StreamConfig)
+    for port_cls, jax_cls, bads in (
+            (StreamConfig, JStreamConfig,
+             (dict(miss_policy="drop"), dict(ring_slots=0))),
+            (SpecConfig, JSpecConfig,
+             (dict(k=-1), dict(drafter="oracle"), dict(ngram_order=1),
+              dict(draft_window=0)))):
+        assert [(f.name, f.default) for f in dataclasses.fields(port_cls)] \
+            == [(f.name, f.default) for f in dataclasses.fields(jax_cls)]
+        for bad in bads:
+            with pytest.raises(AssertionError):
+                jax_cls(**bad)
+            with pytest.raises(AssertionError):
+                port_cls(**bad)
     assert [f.name for f in dataclasses.fields(ControlConfig)] == \
         [f.name for f in dataclasses.fields(JControlConfig)
          if f.name != "budget_scope"]
@@ -99,7 +107,7 @@ def test_serve_and_control_config_copies_match_jax():
     kept = {f.name for f in dataclasses.fields(ServeConfig)}
     assert kept == {"temperature", "eos_id", "cache_experts", "num_slots",
                     "chunk_steps", "page_size", "prefix_cache", "control",
-                    "stream"}
+                    "stream", "spec"}
     port, jax_ = dataclasses.asdict(ServeConfig()), \
         dataclasses.asdict(JServeConfig())
     jax_["control"].pop("budget_scope")

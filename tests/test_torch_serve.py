@@ -493,13 +493,6 @@ def test_score_matches_jax(m):
     assert abs(a - b) <= 1e-5 * max(abs(a), 1.0)
 
 
-@pytest.mark.parametrize("kw", [dict(spec_k=2), dict(drafter="ngram")])
-def test_serve_raises_on_unported_options(m, kw):
-    eng = m["torch"][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        eng.serve(_workload(t_sched, n=2), num_slots=2, chunk=2, **kw)
-
-
 # ---------------------------------------------------------------------------
 # the controller (host copy)
 # ---------------------------------------------------------------------------

@@ -126,7 +126,7 @@ def main() -> int:
     cs.log(f"card {smi}")
     lib, empty = build(kb.BUILD_DIR / "phases")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_decode_forward.argtypes = [p] * 8 + [i] * 8 + [p]
+    lib.flash_decode_forward.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.flash_decode_max_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
     empty.launch_empty.argtypes = [i] * 4 + [p, p]
     dev = torch.device("cuda")
@@ -152,7 +152,7 @@ def main() -> int:
             kb.check(lib.flash_decode_forward(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
                 pos.data_ptr(), cur.data_ptr(), out.data_ptr(), 4, S, 32, 8,
-                128, 0, cl, 0, stream), "flash_decode_forward")
+                128, 0, cl, 0, 1, stream), "flash_decode_forward")
             torch.cuda.synchronize()
         h = (ctypes.c_ulonglong * 65536)()
         kb.check(lib.phase_read(h), "phase_read")
