@@ -389,6 +389,56 @@ def qmm_kernel_cases(dev, gen):
     return worst
 
 
+def deepseek_decode_cases(dev, gen) -> float:
+    """Kernel 1's rank-space work at DeepSeek-MoE-16B's decode shapes (E
+    64, top-6 with top-n 3, pad_rank 1024) at C 4 (a decode step) and C 16
+    (a verify round): four experts of rank 1024, each holding a
+    compensated and an uncompensated row in one token tile (slots 0 and
+    1), four more at ranks 1000, 517, 64 and 3, rank cap none and 700;
+    both main-kernel paths forced, against the plain version in f64.
+    Returns the largest |diff|."""
+    from repro_torch.kernels import quant_matmul as qm
+    worst = 0.0
+    for K, N in ((2048, 1408), (1408, 2048)):
+        for T in (4, 16):
+            xe, me, ge, rows = dispatch_like(gen, dev, 64, T, K, 6, 3)
+            args = list(random_stack_inputs(gen, dev, 64, 1, K, N, 1024, 2,
+                                            False, "full", False))
+            order = torch.argsort(rows, descending=True, stable=True)
+            mixed = order[:4]
+            for e in mixed.tolist():
+                for s in range(int(rows[e]), 2):    # give it two rows
+                    xe[e, s] = torch.randn((K,), generator=gen, device=dev)
+                    ge[e, s] = 1.0 / 6
+                me[e, 0], me[e, 1] = 1.0, 0.0
+            rows[mixed] = rows[mixed].clamp(min=2)
+            ranks = torch.zeros((64,), dtype=torch.int32, device=dev)
+            ranks[mixed] = 1024
+            ranks[order[4:8]] = torch.tensor([1000, 517, 64, 3],
+                                             dtype=torch.int32, device=dev)
+            args[0], args[8], args[12], args[13] = xe, me, ranks, rows
+            args[9] = ge if K == 1408 else None
+            for cap in (None, 700):
+                args[10] = None if cap is None else torch.tensor(
+                    [cap], dtype=torch.int32, device=dev)
+                ref = qm.fused_expert_matmul_plain(xe.double(), *args[1:],
+                                                   bits=2, group_size=64)
+                for path in ("simt", "mma"):
+                    got = qm._launch_fused(path, *args, bits=2,
+                                           group_size=64)
+                    name = (f"fused deepseek decode path={path} K={K} N={N} "
+                            f"C={T} rank 1024 on experts {mixed.tolist()} "
+                            f"(slot 0 compensated, slot 1 not), ranks 1000, "
+                            f"517, 64, 3 on {order[4:8].tolist()}, cap={cap}"
+                            f", gated={args[9] is not None}")
+                    mx = allclose_report(name, got, ref, **FUSED_TOL)
+                    worst = max(worst, mx)
+                    log(f"  ok  {name}  max|diff| {mx:.3e}")
+            del args, got, ref, xe, me, ge
+            torch.cuda.empty_cache()
+    return worst
+
+
 def qwen3_fused_cases(dev, gen) -> float:
     """Kernel 1 at Qwen3-MoE-30B-A3B's expert grid (E 128, d_model 2048,
     d_expert 768): top-8-of-128 dispatch with top-n 3 at decode (T 4),
@@ -521,6 +571,7 @@ def kernel_phase(dev):
             del args, got, ref, xe, me, ge
             torch.cuda.empty_cache()
     errs["fused_expert_matmul"] = max(errs["fused_expert_matmul"],
+                                      deepseek_decode_cases(dev, gen),
                                       qwen3_fused_cases(dev, gen))
     # per-channel groups (group_size = K) on one small case
     K, N = shapes[0]
@@ -1471,14 +1522,92 @@ def fused_crossover(dev, gen, st, cfg, flush, proj):
     return out
 
 
+def rank_space_bytes(st, me, cap, ranks) -> int:
+    """Least bytes of a fused call's rank-space work on these inputs: the
+    int8 U and V rows of each compensated expert's live ranks (below
+    min(pad_rank, rank cap, ranks[e])), their f32 scales, and xu (f32,
+    one row per compensated slot), each once."""
+    E, K, N = st.shape
+    n_comp = (me != 0).sum(dim=1).tolist()
+    lim = st.pad_rank if cap is None else min(st.pad_rank, int(cap))
+    nb = 0
+    for e in range(E):
+        r = min(lim, int(ranks[e]))
+        if n_comp[e] and r > 0:
+            nb += r * (K + N) + 8 * r + 4 * n_comp[e] * r
+    return nb
+
+
+def fused_decode_parts(dev, gen, flush, st, cfg, proj: str, label: str,
+                       C: int) -> dict:
+    """The parts of one fused call at a decode capacity C (the decode step
+    at C = batch, a verify round at C = batch * (k + 1)) on the CUDA-core
+    path, on dispatch-like inputs and on the same inputs with the stack's
+    pad_rank forced onto a compensated expert: the whole call, the
+    rank-space pre-pass alone (and with rank cap 0: its grid with every
+    tile dead), the main kernel, and the main kernel with rank cap 0 (no
+    epilogue; the difference is the epilogue), each beside the rank-space
+    byte bound.  Returns {case: {part: device ms, ...}}."""
+    from repro_torch.kernels import quant_matmul as qm
+    E, K, N = st.shape
+    kw = dict(bits=st.bits, group_size=st.group_size)
+    eb, ranks = st.meta_tensors()
+    xe, me, ge, rows = dispatch_like(gen, dev, E, C, K, cfg.moe.top_k,
+                                     cfg.moe.quant.top_n_restore)
+    ge = ge if proj == "w2" else None
+    comp = torch.nonzero(me.sum(dim=1) > 0)[:, 0].tolist()
+    rk = [int(r) for r in st.ranks]
+    forced = list(rk)
+    if comp and max(rk[e] for e in comp) < st.pad_rank:
+        forced[comp[0]] = st.pad_rank
+    cap0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    out = {}
+    for case, rlist in (("dispatch", rk), ("forced", forced)):
+        rt = torch.tensor(rlist, dtype=torch.int32, device=dev)
+        args = (xe, st.planes, st.scale, st.zero, st.u, st.u_scale, st.v,
+                st.v_scale, me, ge, None, eb, rt, rows)
+        dead = args[:10] + (cap0,) + args[11:]
+        t = {"call": time_ms(lambda: qm.fused_expert_matmul(
+                *args, require_kernel=True, **kw), 10, flush),
+             "prepass": time_ms(lambda: qm._fused_parts(
+                 ("prepass",), *args, **kw), 10, flush),
+             "prepass cap 0": time_ms(lambda: qm._fused_parts(
+                 ("prepass",), *dead, **kw), 10, flush),
+             "main": time_ms(lambda: qm._fused_parts(
+                 ("simt",), *args, **kw), 10, flush),
+             "main cap 0": time_ms(lambda: qm._fused_parts(
+                 ("simt",), *dead, **kw), 10, flush)}
+        ms = {k: _ms(f"{label} fused {proj} C={C} {case} {k}", v)
+              for k, v in t.items()}
+        ms["epilogue"] = ms["main"] - ms["main cap 0"]
+        nb = rank_space_bytes(st, me, None, rlist)
+        ms["rank bound"] = nb / HBM_BYTES_PER_S * 1e3
+        live = sorted({rlist[e] for e in comp if rlist[e] > 0},
+                      reverse=True)
+        log(f"  {label} fused {proj} decode parts C={C} {case}: compensated "
+            f"experts {len(comp)}, their live ranks {live}; ms on the "
+            f"device: call {ms['call']:.4f}, pre-pass {ms['prepass']:.4f} "
+            f"(every tile dead {ms['prepass cap 0']:.4f}), CUDA-core main "
+            f"kernel {ms['main']:.4f}, with rank cap 0 "
+            f"{ms['main cap 0']:.4f}, so epilogue {ms['epilogue']:.4f}; "
+            f"rank-space bound {ms['rank bound']:.6f} ({nb / 1e6:.3f} MB)"
+            f"; pre-pass grid {qm.xu_geometry(E, C, K, st.pad_rank)}")
+        out[case] = ms
+    del xe, me, ge, args, dead
+    return out
+
+
 def fused_timing(dev, gen, flush, sl, label: str, crossover: bool):
     """Kernel 1 on a slice's first MoE layer's w1 and w2 stacks on
     dispatch-like inputs (top-k of E experts, the first top-n
     compensated, exact capacity): at decode (C = B tokens) and at prefill
-    (C = B*P), each beside its plain version and bounds; at prefill also
-    both main-kernel paths and the parts of the call (rank-space pre-pass,
-    main kernel).  Returns the ``kernels`` line's fused entry (w1) and,
-    with ``crossover``, both paths at smaller C per projection."""
+    (C = B*P), each beside its plain version and bounds; at decode (C = B
+    and a verify round's C = 4B) the parts of the call on the CUDA-core
+    path (``fused_decode_parts``); at prefill both main-kernel paths and
+    the parts of the call (rank-space pre-pass, main kernel).  Returns
+    the ``kernels`` line's fused entry (w1; the decode parts of w2 with
+    a pad_rank expert compensated under ``decode_forced_*``) and, with
+    ``crossover``, both paths at smaller C per projection."""
     from repro_torch.kernels import quant_matmul as qm
     cfg = sl["cfg"]
     B = sl["B"]
@@ -1489,6 +1618,18 @@ def fused_timing(dev, gen, flush, sl, label: str, crossover: bool):
         K = st.shape[1]
         kw = dict(bits=st.bits, group_size=st.group_size)
         eb, ranks = st.meta_tensors()
+        for C in (B, 4 * B):
+            dparts = fused_decode_parts(dev, gen, flush, st, cfg, proj,
+                                        label, C)
+            if C != B:
+                continue
+            case, pre = (("dispatch", "decode_") if proj == "w1" else
+                         ("forced", "decode_forced_"))
+            entry.update({pre + "prepass_ms": dparts[case]["prepass"],
+                          pre + "epilogue_ms": dparts[case]["epilogue"],
+                          pre + "rank_bound_ms": dparts[case]["rank bound"]})
+            if proj == "w2":
+                entry["decode_forced_ms"] = dparts[case]["call"]
         for C in (B, B * sl["P"]):
             xe, me, ge, rows = dispatch_like(gen, dev, E, C, K,
                                              cfg.moe.top_k,
@@ -1512,7 +1653,7 @@ def fused_timing(dev, gen, flush, sl, label: str, crossover: bool):
                 f"cores x2 {tms:.4f} ms ({tby})")
             if C == B:
                 if proj == "w1":
-                    entry = dict(
+                    entry.update(
                         ms=_ms(f"{label} fused kernel", kt),
                         plain_ms=_ms(f"{label} fused plain", pt),
                         bound_ms=bms, bound_by=by)
@@ -1537,7 +1678,7 @@ def fused_timing(dev, gen, flush, sl, label: str, crossover: bool):
                     10, flush)
             log(f"  {label} fused {proj} C={C} parts, ms on the device: "
                 f"rank-space pre-pass {parts['prepass']['device']:.4f} "
-                f"(K splits {qm.xu_splits(E, C, K, st.pad_rank)}); "
+                f"(grid {qm.xu_geometry(E, C, K, st.pad_rank)}); "
                 f"CUDA-core main "
                 f"kernel {parts['simt main']['device']:.4f} (call "
                 f"{parts['simt all']['device']:.4f}); tensor-core main "

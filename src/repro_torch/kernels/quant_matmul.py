@@ -8,14 +8,22 @@ expert e of one (layer, projection):
              + mask_r((xe[e] * me[e]) @ (U_e u_s)) v_s @ V_e)  # comp
             * ge[e]                                      # gate
 
-The kernel (``csrc/fused_expert.cu``) is a rank-space pre-pass plus one
-main kernel with two paths, chosen by the capacity C: below
-``FUSED_MMA_MIN_C`` (decode) CUDA-core blocks walk K by pack blocks; from
+The kernel (``csrc/fused_expert.cu``) is two launches.  The rank-space
+pre-pass computes ``xu`` once per (expert, compensated token, live rank):
+below ``FUSED_MMA_MIN_C`` a fixed grid of ``XU_SLOTS`` clusters of
+``XU_CLUSTER`` blocks takes the live (expert, token tile,
+``XU_TILE_R``-rank tile) items in turn, from it one block per item; K is
+split in an order fixed by K, so a token's ``xu`` does not depend on the
+other tokens of the call (``xu_geometry`` mirrors the grid).  The main kernel
+has two paths, chosen by the capacity C: below ``FUSED_MMA_MIN_C``
+(decode) CUDA-core blocks whose warps split both the K walk (by pack
+blocks) and the rank walk of the ``xu @ V`` epilogue; from
 ``FUSED_MMA_MIN_C`` (prefill) each expert's 64 x 128 output tiles run
 quant_matmul's tensor-core tile.  See the source note there for what
 bounds it on the H100 and what its design does about that.  ``rank_cap``,
 ``expert_bits`` and the true ``ranks`` are device tensors read by the
-kernel, never compile-time specialisations.
+kernel, never compile-time specialisations, so a captured call reads
+their current values.
 
 ``quant_matmul`` ports ``quant_matmul_pallas`` and
 ``lowrank_comp_matmul_pallas`` (one packed (K, N) matrix, the dense-FFN
@@ -99,7 +107,7 @@ def _fused_lib(entry: str):
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p] * 18 + [i] * 8 + [p]
+        fn.argtypes = [p] * 17 + [i] * 7 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -116,12 +124,30 @@ def fused_path(C: int) -> str:
     return "mma" if C >= FUSED_MMA_MIN_C else "simt"
 
 
-def xu_splits(E: int, C: int, K: int, R: int) -> int:
-    """K splits of the rank-space pre-pass: enough blocks (about 1024) to
-    spread even one compensated expert over the card, at least one 64-row
-    pack block per split."""
-    tiles = E * -(-C // 8) * -(-R // 128)
-    return max(1, min(K // PACK_BLOCK, -(-1024 // tiles)))
+# The rank-space pre-pass (``csrc/fused_expert.cu``: ``kXuTileR``,
+# ``kXuCluster``, ``kXuSlots``, ``kXuWarps``): ranks per work item (4 per
+# lane); below FUSED_MMA_MIN_C, blocks per cluster and clusters in the
+# grid; warps per block
+XU_TILE_R = 128
+XU_CLUSTER = 8
+XU_SLOTS = 32
+XU_WARPS = 8
+
+
+def xu_geometry(E: int, C: int, K: int, R: int) -> dict:
+    """The pre-pass launch for capacity C: its grid, the cluster size, the
+    tokens per work item and the K rows each warp sums (the split, fixed
+    by K and the cluster size).  Below ``FUSED_MMA_MIN_C`` the grid is
+    ``XU_SLOTS`` clusters whatever E, C and R are, the clusters taking the
+    live items (expert, token tile, rank tile) in turn; from it, one block
+    per item, dead ones included."""
+    ct = token_tile(C)
+    if C < FUSED_MMA_MIN_C:
+        cs, grid = XU_CLUSTER, (XU_CLUSTER, XU_SLOTS, 1)
+    else:
+        cs, grid = 1, (-(-R // XU_TILE_R), -(-C // ct), E)
+    return {"grid": grid, "cluster": cs, "tokens": ct,
+            "k_rows_per_warp": -(-K // (cs * XU_WARPS))}
 
 
 def _ptr(t: Optional[torch.Tensor], dtype: torch.dtype, name: str,
@@ -219,8 +245,6 @@ def _fused_parts(entries: Tuple[str, ...], xe, planes, scale, zero, u,
     mef = me.float().contiguous()
     gef = None if ge is None else ge.float().contiguous()
     out = torch.empty((E, C, N), dtype=torch.float32, device=dev)
-    ks = xu_splits(E, C, K, R)
-    partial = torch.empty((E, C, ks, R), dtype=torch.float32, device=dev)
     xu = torch.empty((E, C, R), dtype=torch.float32, device=dev)
     p0 = _ptr(planes[0], torch.uint8, "planes[0]", dev)
     p1 = _ptr(planes[1], torch.uint8, "planes[1]", dev) \
@@ -230,7 +254,7 @@ def _fused_parts(entries: Tuple[str, ...], xe, planes, scale, zero, u,
             _ptr(zero, torch.float32, "zero", dev, 16),
             _ptr(u, torch.int8, "u", dev, 1),
             _ptr(u_scale, torch.float32, "u_scale", dev),
-            _ptr(v, torch.int8, "v", dev, 4 if mma else 1),
+            _ptr(v, torch.int8, "v", dev, 4),
             _ptr(v_scale, torch.float32, "v_scale", dev),
             _ptr(mef, torch.float32, "me", dev),
             _ptr(gef, torch.float32, "ge", dev),
@@ -238,10 +262,9 @@ def _fused_parts(entries: Tuple[str, ...], xe, planes, scale, zero, u,
             _ptr(ranks, torch.int32, "ranks", dev),
             _ptr(expert_bits, torch.int32, "expert_bits", dev),
             _ptr(rows, torch.int32, "rows", dev),
-            _ptr(partial, torch.float32, "partial", dev),
             _ptr(xu, torch.float32, "xu", dev),
             _ptr(out, torch.float32, "out", dev, 16),
-            E, C, K, N, R, ks, bits, group_size,
+            E, C, K, N, R, bits, group_size,
             torch.cuda.current_stream(dev).cuda_stream)
     for entry in entries:
         check(_fused_lib(entry)(*args), f"fused_expert_{entry}")

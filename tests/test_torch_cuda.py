@@ -174,6 +174,109 @@ def test_fused_mma_path_is_deterministic(dev):
     assert torch.equal(got, again)
 
 
+def _rank_space_args(dev, C, R, ranks, cap, seed):
+    """Decode-sized operands for the rank-space work: E 4, K 256, N 260
+    (a ragged last column tile), pad rank R, the given true ranks, every
+    slot occupied, each token tile holding compensated rows beside rows
+    whose mask is 0 (alternate slots), gated."""
+    args = list(_fused_args(dev, 4, C, 256, 260, R, 2, gated=True, cap=cap,
+                            eb=[2, 1, 2, 2], seed=seed))
+    me = torch.zeros((4, C), device=dev)
+    me[:, 0::2] = 1.0
+    me[1, :] = 1.0                      # one expert with every row
+    args[8] = me
+    args[12] = torch.tensor(ranks, dtype=torch.int32, device=dev)
+    return args
+
+
+@pytest.mark.parametrize("pad", [1024, 1021])
+@pytest.mark.parametrize("cap", ["below", "above"])
+@pytest.mark.parametrize("c", [1, 4, 16, 95])
+def test_fused_decode_rank_space_matches_plain(dev, c, cap, pad):
+    """The decode path's pre-pass and epilogue at decode C (1, the decode
+    step's 4, a verify round's 16, the last C below the threshold):
+    heterogeneous true ranks up to a 1024 pad (and a pad that is no
+    multiple of 4: the pre-pass's byte-load path), a rank cap below and
+    above them, rows whose mask is 0 beside compensated ones in one token
+    tile, against the plain version."""
+    capv = {"below": 300, "above": 2000}[cap]
+    args = _rank_space_args(dev, c, pad, [pad, 700, 3, 0], capv, seed=c)
+    for a in (args, _with_rows(args, [c, c, max(c - 1, 1), c // 2])):
+        got = qm.fused_expert_matmul(*a, bits=2, group_size=64,
+                                     require_kernel=True)
+        want = qm.fused_expert_matmul_plain(*a, bits=2, group_size=64)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+def test_fused_simt_path_is_deterministic(dev):
+    """The CUDA-core path at decode with a rank-1024 expert compensated
+    (the cluster pre-pass and the split epilogue) returns the same bits
+    on every call."""
+    for c in (4, 16):
+        args = _rank_space_args(dev, c, 1024, [1024, 1024, 517, 0], None,
+                                seed=5 + c)
+        got = qm._launch_fused("simt", *args, bits=2, group_size=64)
+        again = qm._launch_fused("simt", *args, bits=2, group_size=64)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+
+
+def test_fused_decode_row_is_routing_independent(dev):
+    """A token's output row is bit-equal whether it shares the call with
+    no other token (C 1), with 3 (C 4, a decode step) or with 15 (C 16, a
+    verify round): the pre-pass's and the epilogue's sums run in an order
+    fixed by K and the rank, not by C or the other tokens."""
+    args = _rank_space_args(dev, 16, 1024, [1024, 1024, 517, 0], None,
+                            seed=11)
+    full = qm.fused_expert_matmul(*args, bits=2, group_size=64,
+                                  require_kernel=True)
+    for s0, c in ((0, 1), (7, 1), (8, 1), (15, 1), (8, 4), (12, 4)):
+        part = list(args)
+        part[0] = args[0][:, s0:s0 + c].contiguous()
+        part[8] = args[8][:, s0:s0 + c].contiguous()
+        part[9] = args[9][:, s0:s0 + c].contiguous()
+        got = qm.fused_expert_matmul(*part, bits=2, group_size=64,
+                                     require_kernel=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[:, s0:s0 + c]), (s0, c)
+
+
+def test_fused_call_replays_in_a_cuda_graph(dev):
+    """A decode-sized fused call captured in a CUDA graph, with the mask,
+    the true ranks and the rank cap changed in place between replays
+    (as the decode graph sees a new plan), equals an eager call on the
+    same values."""
+    args = _rank_space_args(dev, 4, 1024, [1024, 700, 3, 0], 1024, seed=13)
+    kw = dict(bits=2, group_size=64, require_kernel=True)
+    me, ranks, cap = args[8], args[12], args[10]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qm.fused_expert_matmul(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.fused_expert_matmul(*args, **kw)
+    for step, (m, r, c) in enumerate((
+            ([1, 0, 1, 0], [1024, 700, 3, 0], 1024),
+            ([0, 1, 1, 1], [1024, 1024, 64, 5], 200),
+            ([0, 0, 0, 0], [1024, 700, 3, 0], 1024),
+            ([1, 1, 1, 1], [0, 17, 1024, 1024], 0),
+            ([1, 1, 0, 1], [900, 1024, 1024, 1], 1000))):
+        me.copy_(torch.tensor(m, dtype=torch.float32, device=dev)
+                 .repeat(4, 1))
+        ranks.copy_(torch.tensor(r, dtype=torch.int32, device=dev))
+        cap.fill_(c)
+        graph.replay()
+        want = qm.fused_expert_matmul(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), step
+        torch.testing.assert_close(
+            out, qm.fused_expert_matmul_plain(*args, bits=2, group_size=64),
+            **FUSED_TOL)
+
+
 def _dispatch_like(dev, E, T, K, top_k, top_n, seed):
     """(E, C=T, K) buffers as ``moe.dispatch_tokens`` fills them: T tokens
     each routed to ``top_k`` distinct random experts, slots taken in token

@@ -133,11 +133,16 @@ def test_cuda_impl_refuses_cpu_tensors():
         tops.resolve_impl("pallas")
 
 
+def _kernel_constant(name: str) -> int:
+    """The ``constexpr int`` ``name`` as ``csrc/fused_expert.cu`` defines
+    it."""
+    src = (Path(tqm.__file__).parent / "csrc" / "fused_expert.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
 def _kernel_fused_mma_min_c() -> int:
     """``kFusedMmaMinC`` as ``csrc/fused_expert.cu`` defines it."""
-    src = (Path(tqm.__file__).parent / "csrc" / "fused_expert.cu").read_text()
-    return int(re.search(r"constexpr int kFusedMmaMinC = (\d+);",
-                         src).group(1))
+    return _kernel_constant("kFusedMmaMinC")
 
 
 @pytest.mark.parametrize("c", [1, 4, "below", "at", "above", 1024])
@@ -150,6 +155,36 @@ def test_fused_path_choice_mirrors_the_kernel(c):
     c = {"below": t - 1, "at": t, "above": t + 1}.get(c, c)
     assert tqm.fused_path(c) == ("mma" if c >= t else "simt")
     assert tqm.fused_path(4) == "simt" and tqm.fused_path(1024) == "mma"
+
+
+@pytest.mark.parametrize("name,const", [("XU_TILE_R", "kXuTileR"),
+                                        ("XU_CLUSTER", "kXuCluster"),
+                                        ("XU_SLOTS", "kXuSlots"),
+                                        ("XU_WARPS", "kXuWarps")])
+def test_prepass_constants_mirror_the_kernel(name, const):
+    """The wrapper's mirror of the rank-space pre-pass's launch constants:
+    ranks per work item, blocks per cluster and clusters per grid below
+    ``kFusedMmaMinC``, warps per block."""
+    assert getattr(tqm, name) == _kernel_constant(const)
+
+
+@pytest.mark.parametrize("c", [1, 4, 16, 95, 96, 1024])
+def test_prepass_geometry_by_capacity(c):
+    """Below ``FUSED_MMA_MIN_C`` the pre-pass runs a fixed grid of
+    ``XU_SLOTS`` clusters of ``XU_CLUSTER`` blocks and its K split (rows
+    per warp) is the same for every C, so a token's sum does not depend on
+    C; from it, one block per (rank tile, token tile, expert).
+    DeepSeek-MoE's w2 (E 64, K 1408, pad_rank 1024)."""
+    g = tqm.xu_geometry(64, c, 1408, 1024)
+    decode = c < tqm.FUSED_MMA_MIN_C
+    cs = tqm.XU_CLUSTER if decode else 1
+    assert g["cluster"] == cs and g["tokens"] == tqm.token_tile(c)
+    assert g["grid"] == ((cs, tqm.XU_SLOTS, 1) if decode else
+                         (1024 // tqm.XU_TILE_R, -(-c // 8), 64))
+    assert g["k_rows_per_warp"] == -(-1408 // (cs * tqm.XU_WARPS))
+    if decode:
+        assert g["k_rows_per_warp"] == tqm.xu_geometry(
+            64, 1, 1408, 1024)["k_rows_per_warp"]
 
 
 # ---------------------------------------------------------------------------
