@@ -32,7 +32,7 @@ Phases:
   4. timing     each MoE-path kernel, its plain version and (where one
                 exists) a PyTorch library call computing the same
                 function, beside its bound; the fused kernel at prefill
-                on both of its paths (CUDA cores, tensor cores), split
+                on both of its paths (decode kernel, prefill tile), split
                 into its rank-space pre-pass and main kernel, beside both
                 its bounds, and both paths at smaller C (the crossover
                 FUSED_MMA_MIN_C rests on); flash-decode at the slice's
@@ -992,7 +992,7 @@ def slice_phase(dev, dtype=torch.float32):
     sv["eager_launches"].pop("fused_mma")
     log(f"  fused_expert_matmul launches on the tensor-core path "
         f"{mma_launches} (C >= FUSED_MMA_MIN_C {qm.FUSED_MMA_MIN_C}; "
-        f"prefill C = B*P = {B * P}), on the CUDA cores "
+        f"prefill C = B*P = {B * P}), on the decode path "
         f"{launches['fused_expert_matmul'] - mma_launches}")
     if mma_launches <= 0:
         fail("prefill never took the fused kernel's tensor-core path")
@@ -1514,8 +1514,8 @@ def fused_crossover(dev, gen, st, cfg, flush, proj):
         out[T] = {p: _ms(f"fused crossover {proj} {p} C={T}", time_ms(
             lambda: qm._launch_fused(p, *args, **kw), 10, flush))
                   for p in ("simt", "mma")}
-        log(f"  fused crossover {proj} C={T} rows={rows.tolist()}: CUDA "
-            f"cores {out[T]['simt']:.4f} ms, tensor cores "
+        log(f"  fused crossover {proj} C={T} rows={rows.tolist()}: decode "
+            f"kernel {out[T]['simt']:.4f} ms, prefill tile "
             f"{out[T]['mma']:.4f} ms on the device (the wrapper takes "
             f"{qm.fused_path(T)}; FUSED_MMA_MIN_C {qm.FUSED_MMA_MIN_C})")
         del xe, me, ge, args
@@ -1538,16 +1538,28 @@ def rank_space_bytes(st, me, cap, ranks) -> int:
     return nb
 
 
+def kwalk_bytes(st, C: int, rows) -> int:
+    """Least bytes of a fused call's K walk on these inputs: the planes and
+    f32 scale/zero of the experts that hold tokens, their occupied x rows
+    (f32) and the (E, C, N) f32 output, each once."""
+    E, K, N = st.shape
+    occ = rows.tolist()
+    per_expert = (sum(p[0].numel() for p in st.planes)
+                  + 4 * (st.scale[0].numel() + st.zero[0].numel()))
+    return 4 * E * C * N + sum(per_expert + 4 * o * K for o in occ if o > 0)
+
+
 def fused_decode_parts(dev, gen, flush, st, cfg, proj: str, label: str,
                        C: int) -> dict:
     """The parts of one fused call at a decode capacity C (the decode step
-    at C = batch, a verify round at C = batch * (k + 1)) on the CUDA-core
+    at C = batch, a verify round at C = batch * (k + 1)) on the decode
     path, on dispatch-like inputs and on the same inputs with the stack's
     pad_rank forced onto a compensated expert: the whole call, the
     rank-space pre-pass alone (and with rank cap 0: its grid with every
-    tile dead), the main kernel, and the main kernel with rank cap 0 (no
-    epilogue; the difference is the epilogue), each beside the rank-space
-    byte bound.  Returns {case: {part: device ms, ...}}."""
+    tile dead), the main kernel, and the main kernel with rank cap 0 (the
+    K walk alone, no epilogue; the difference is the epilogue), beside
+    the rank-space byte bound and the K walk's (``kwalk_bytes``).
+    Returns {case: {part: device ms, ...}}."""
     from repro_torch.kernels import quant_matmul as qm
     E, K, N = st.shape
     kw = dict(bits=st.bits, group_size=st.group_size)
@@ -1567,6 +1579,7 @@ def fused_decode_parts(dev, gen, flush, st, cfg, proj: str, label: str,
         args = (xe, st.planes, st.scale, st.zero, st.u, st.u_scale, st.v,
                 st.v_scale, me, ge, None, eb, rt, rows)
         dead = args[:10] + (cap0,) + args[11:]
+        idle = dead[:13] + (torch.zeros_like(rows),)
         t = {"call": time_ms(lambda: qm.fused_expert_matmul(
                 *args, require_kernel=True, **kw), 10, flush),
              "prepass": time_ms(lambda: qm._fused_parts(
@@ -1576,24 +1589,32 @@ def fused_decode_parts(dev, gen, flush, st, cfg, proj: str, label: str,
              "main": time_ms(lambda: qm._fused_parts(
                  ("simt",), *args, **kw), 10, flush),
              "main cap 0": time_ms(lambda: qm._fused_parts(
-                 ("simt",), *dead, **kw), 10, flush)}
+                 ("simt",), *dead, **kw), 10, flush),
+             "main idle": time_ms(lambda: qm._fused_parts(
+                 ("simt",), *idle, **kw), 10, flush)}
         ms = {k: _ms(f"{label} fused {proj} C={C} {case} {k}", v)
               for k, v in t.items()}
         ms["epilogue"] = ms["main"] - ms["main cap 0"]
         nb = rank_space_bytes(st, me, None, rlist)
         ms["rank bound"] = nb / HBM_BYTES_PER_S * 1e3
+        kb = kwalk_bytes(st, C, rows)
+        ms["kwalk bound"] = kb / HBM_BYTES_PER_S * 1e3
         live = sorted({rlist[e] for e in comp if rlist[e] > 0},
                       reverse=True)
         log(f"  {label} fused {proj} decode parts C={C} {case}: compensated "
-            f"experts {len(comp)}, their live ranks {live}; ms on the "
-            f"device: call {ms['call']:.4f}, pre-pass {ms['prepass']:.4f} "
-            f"(every tile dead {ms['prepass cap 0']:.4f}), CUDA-core main "
-            f"kernel {ms['main']:.4f}, with rank cap 0 "
-            f"{ms['main cap 0']:.4f}, so epilogue {ms['epilogue']:.4f}; "
-            f"rank-space bound {ms['rank bound']:.6f} ({nb / 1e6:.3f} MB)"
-            f"; pre-pass grid {qm.xu_geometry(E, C, K, st.pad_rank)}")
+            f"experts {len(comp)}, their live ranks {live}, live experts "
+            f"{int((rows > 0).sum())}; ms on the device: call "
+            f"{ms['call']:.4f}, pre-pass {ms['prepass']:.4f} (every tile "
+            f"dead {ms['prepass cap 0']:.4f}), decode main kernel "
+            f"{ms['main']:.4f}, with rank cap 0 (K walk) "
+            f"{ms['main cap 0']:.4f} against its byte bound "
+            f"{ms['kwalk bound']:.4f} ({kb / 1e6:.3f} MB; every expert "
+            f"idle {ms['main idle']:.4f}), so epilogue "
+            f"{ms['epilogue']:.4f}; rank-space bound {ms['rank bound']:.6f} "
+            f"({nb / 1e6:.3f} MB); pre-pass grid "
+            f"{qm.xu_geometry(E, C, K, st.pad_rank)}")
         out[case] = ms
-    del xe, me, ge, args, dead
+    del xe, me, ge, args, dead, idle
     return out
 
 
@@ -1602,7 +1623,7 @@ def fused_timing(dev, gen, flush, sl, label: str, crossover: bool):
     dispatch-like inputs (top-k of E experts, the first top-n
     compensated, exact capacity): at decode (C = B tokens) and at prefill
     (C = B*P), each beside its plain version and bounds; at decode (C = B
-    and a verify round's C = 4B) the parts of the call on the CUDA-core
+    and a verify round's C = 4B) the parts of the call on the decode
     path (``fused_decode_parts``); at prefill both main-kernel paths and
     the parts of the call (rank-space pre-pass, main kernel).  Returns
     the ``kernels`` line's fused entry (w1; the decode parts of w2 with
@@ -1628,6 +1649,10 @@ def fused_timing(dev, gen, flush, sl, label: str, crossover: bool):
             entry.update({pre + "prepass_ms": dparts[case]["prepass"],
                           pre + "epilogue_ms": dparts[case]["epilogue"],
                           pre + "rank_bound_ms": dparts[case]["rank bound"]})
+            if proj == "w1":
+                entry.update(
+                    decode_kwalk_ms=dparts[case]["main cap 0"],
+                    decode_kwalk_bound_ms=dparts[case]["kwalk bound"])
             if proj == "w2":
                 entry["decode_forced_ms"] = dparts[case]["call"]
         for C in (B, B * sl["P"]):
@@ -1679,7 +1704,7 @@ def fused_timing(dev, gen, flush, sl, label: str, crossover: bool):
             log(f"  {label} fused {proj} C={C} parts, ms on the device: "
                 f"rank-space pre-pass {parts['prepass']['device']:.4f} "
                 f"(grid {qm.xu_geometry(E, C, K, st.pad_rank)}); "
-                f"CUDA-core main "
+                f"decode main "
                 f"kernel {parts['simt main']['device']:.4f} (call "
                 f"{parts['simt all']['device']:.4f}); tensor-core main "
                 f"kernel {parts['mma main']['device']:.4f} (call "
@@ -1694,7 +1719,7 @@ def fused_timing(dev, gen, flush, sl, label: str, crossover: bool):
                                          pt),
                     prefill_bound_ms=tms, prefill_bound_by=tby,
                     prefill_bound_f32_ms=bms,
-                    prefill_simt_ms=_ms(f"{label} fused prefill CUDA-core "
+                    prefill_simt_ms=_ms(f"{label} fused prefill decode "
                                         "path", parts["simt all"]),
                     prefill_prepass_ms=_ms(f"{label} fused prefill pre-pass",
                                            parts["prepass"]))
@@ -1715,8 +1740,8 @@ def timing_phase(dev, sl):
     for T, t1 in cross["w1"].items():
         t2 = cross["w2"][T]
         layer = {p: 2 * t1[p] + t2[p] for p in t1}
-        log(f"  fused crossover per MoE layer (w1 + w3 + w2) C={T}: CUDA "
-            f"cores {layer['simt']:.4f} ms, tensor cores {layer['mma']:.4f}"
+        log(f"  fused crossover per MoE layer (w1 + w3 + w2) C={T}: decode "
+            f"kernel {layer['simt']:.4f} ms, prefill tile {layer['mma']:.4f}"
             f" ms")
     # flash decode at the slice's decode shape: f32 cache of bucket length
     table["flash_decode_attention"] = flash_slice_timing(dev, gen, flush, sl)
@@ -1871,11 +1896,11 @@ def deepseek_phase(dev):
     sv["eager_launches"].pop("fused_mma")
     simt_launches = launches["fused_expert_matmul"] - mma_launches
     log(f"  fused_expert_matmul launches on the tensor-core path "
-        f"{mma_launches} (prefill C = B*P = {B * P}), on the CUDA cores "
+        f"{mma_launches} (prefill C = B*P = {B * P}), on the decode path "
         f"{simt_launches}")
     if mma_launches <= 0 or simt_launches <= 0:
         fail(f"kernel 1 did not run on both of its paths: {mma_launches} "
-             f"tensor-core and {simt_launches} CUDA-core launches")
+             f"prefill-tile and {simt_launches} decode-kernel launches")
     if launches["flash_decode_attention"] <= 0:
         fail(f"flash-decode was never launched: {launches}")
     check_generation(res, B, NEW, cfg.vocab_size)
@@ -2100,8 +2125,8 @@ def tail_bytes_per_token(ctrl) -> float:
 
 
 def serve_divergence(eng, prompts, gen, sv) -> int:
-    """Rows where ``serve`` (admissions prefilled at batch 1: kernel 1 on
-    its CUDA cores) and ``generate`` (batch-4 prefill: its tensor cores)
+    """Rows where ``serve`` (admissions prefilled at batch 1: kernel 1's
+    decode kernel) and ``generate`` (batch-4 prefill: its prefill tile)
     part: each row's first differing step must be a near-tie of
     ``generate``'s f32 state, the token one of its logits (softmax within
     NEAR_TIE), the routing one of its router (``near_tie``).  Checked

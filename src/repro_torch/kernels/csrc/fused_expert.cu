@@ -8,9 +8,11 @@
 //            * vs_e @ V_e) * ge[e]
 //
 // What bounds it on the H100: at decode (C = a few tokens per expert) the
-// bytes of the packed planes + f32 scale/zero + int8 U/V, read once; the
-// arithmetic is ~C multiply-adds per weight.  At prefill (C = B*P) every
-// weight meets C tokens and the CUDA-core arithmetic bounds it.
+// bytes of the packed planes + f32 scale/zero + int8 U/V, read once, would;
+// the CUDA-core K walk below is held back by its instruction issue instead
+// (about 3 instructions per weight to unpack, plus one multiply-add per
+// token slot multiplied).  At prefill (C = B*P) every weight meets C
+// tokens and the arithmetic bounds it, on the tensor cores.
 //
 // The rank-space work: xu = mask_r((x*me) @ (U*us)) * vs, then + xu @ V.
 // Its bytes are the int8 U and V rows of the compensated experts below
@@ -56,7 +58,16 @@
 //    side), so the decode step (C 4) and a verify round (C 16) round alike.
 //
 // Decode, C < kFusedMmaMinC: fused_expert_kernel, on the CUDA cores.  It
-// runs one block per (token tile, 128-column tile, expert).  Its 8 warps
+// runs one block per (token tile of token_tile(C) slots, 128-column tile,
+// expert).  The walk multiplies only as many slots as the tile holds
+// tokens (walk_slots: the smallest of 1, 2, 4, 8 that holds them in an
+// 8-slot tile, 1 or all slots in a smaller one): at DeepSeek-MoE's decode
+// step most live experts hold one token of a 4-slot tile, and in a verify
+// round (C 16) about two of 8.  A token's sum is the same chain of
+// operations at any width, so its row does not depend on C or on the
+// other tokens.  A tensor-core walk (exact bf16 codes against x's
+// bf16 parts, the tokens as mma.sync's narrow operand, a persistent grid
+// of live items) was measured slower at C 4 (PERF.md §6).  Its 8 warps
 // split K by 64-row pack blocks (quant_tile.cuh: warp_k_walk, shared with
 // quant_matmul.cu); each lane owns 4 adjacent columns, so one 32-bit load
 // per plane row brings 4 columns of packed codes (coalesced 128 B per
@@ -466,6 +477,30 @@ cudaError_t launch_xu(dim3 grid, cudaStream_t stream, const float* x,
 template <int BITS, int CT>
 constexpr int kMainMinBlocks = CT <= 2 || (CT == 4 && BITS <= 2) ? 2 : 1;
 
+// The K walk of a token tile of CT slots whose first CW hold its tokens:
+// warp_k_walk at CW slots, so a weight costs CW multiply-adds per lane
+// (slots past the expert's tokens read x as zero).  Each token's sum is
+// the same chain of operations whatever CW and CT are, so its row does not
+// depend on how many tokens share its tile.  acc[c] for c >= CW stays 0.
+template <int BITS, int CT, int CW>
+__device__ __forceinline__ void walk_slots(const Args& a, int occ, int e,
+                                           int c0, int warp, int lane,
+                                           int col, bool col_ok,
+                                           uint32_t keep0, uint32_t keep1,
+                                           float* xs, float (&acc)[CT][4]) {
+  float w[CW][4];
+#pragma unroll
+  for (int c = 0; c < CW; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[c][i] = 0.f;
+  warp_k_walk<BITS, CW>(a, occ, e, c0, 0, a.K / PACK, warp, lane, col,
+                        col_ok, keep0, keep1, xs, w);
+#pragma unroll
+  for (int c = 0; c < CW; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[c][i] = w[c][i];
+}
+
 // Block (token tile, column tile, expert); 8 warps split the K walk by
 // pack blocks, each warp loading its next pack block while it computes
 // the current one (for widths up to 4 bits, where registers allow).
@@ -480,7 +515,7 @@ fused_expert_kernel(Args a,
                     const int* __restrict__ ranks,
                     const int* __restrict__ expert_bits,
                     float* __restrict__ out, int R) {
-  const int C = a.C, K = a.K, N = a.N;
+  const int C = a.C, N = a.N;
   const int e = blockIdx.z;
   const int c0 = blockIdx.x * CT;
   const int n0 = blockIdx.y * BN;
@@ -532,8 +567,21 @@ fused_expert_kernel(Args a,
       asm volatile("prefetch.global.L2 [%0];" ::"l"(
           v + (size_t)e * R * N + (size_t)rr * N + n0));
 
-  warp_k_walk<BITS, CT>(a, occ, e, c0, 0, K / PACK, warp, lane, col, col_ok,
-                        keep0, keep1, xs, acc);
+  // the walk's token tile follows the tile's occupied slots, not C: a
+  // tile holding one token costs one multiply-add per weight, not CT.  A
+  // 2- or 4-slot tile walks 1 slot or all of them: a third walk beside
+  // them spilled at the 128 registers of two blocks per SM and slowed the
+  // rank walk more than it saved (PERF.md §6).  Each width is inlined
+  // once (the conditions on CT fold at compile time).
+  const int live = occ - c0;                    // >= 1 here; block-uniform
+#define FE_WALK(CW)                                                       \
+  walk_slots<BITS, CT, (CW < CT ? CW : CT)>(a, occ, e, c0, warp, lane, col, \
+                                            col_ok, keep0, keep1, xs, acc)
+  if (CT == 1 || live <= 1) FE_WALK(1);
+  else if (CT != 8 || live > 4) FE_WALK(8);
+  else if (live <= 2) FE_WALK(2);
+  else FE_WALK(4);
+#undef FE_WALK
 
   if (comp) {                       // block-uniform
     constexpr int kStage = WARPS * BN;          // ranks of xu per stage

@@ -17,7 +17,9 @@ split in an order fixed by K, so a token's ``xu`` does not depend on the
 other tokens of the call (``xu_geometry`` mirrors the grid).  The main kernel
 has two paths, chosen by the capacity C: below ``FUSED_MMA_MIN_C``
 (decode) CUDA-core blocks whose warps split both the K walk (by pack
-blocks) and the rank walk of the ``xu @ V`` epilogue; from
+blocks) and the rank walk of the ``xu @ V`` epilogue, the walk
+multiplying only as many token slots as the tile holds tokens
+(``walk_slots``: at decode most live experts hold one token); from
 ``FUSED_MMA_MIN_C`` (prefill) each expert's 64 x 128 output tiles run
 quant_matmul's tensor-core tile.  See the source note there for what
 bounds it on the H100 and what its design does about that.  ``rank_cap``,
@@ -122,6 +124,20 @@ def fused_path(C: int) -> str:
     'mma' (tensor cores) from ``FUSED_MMA_MIN_C``, else 'simt' (the CUDA
     cores)."""
     return "mma" if C >= FUSED_MMA_MIN_C else "simt"
+
+
+def walk_slots(C: int, occupied: int) -> int:
+    """Token slots the decode main kernel's K walk multiplies for a token
+    tile holding ``occupied`` (>= 1) tokens at capacity C
+    (``csrc/fused_expert.cu::walk_slots``): the smallest of 1, 2, 4, 8 that
+    holds them in an 8-slot tile (``token_tile(C)``), 1 or the whole tile
+    in a smaller one.  Each weight costs that many multiply-adds per lane,
+    and a token's sum is the same whatever the count, so its row does not
+    depend on C or on the tokens sharing its expert."""
+    tile = token_tile(C)
+    if occupied <= 1:
+        return 1
+    return min(token_tile(occupied), tile) if tile == 8 else tile
 
 
 # The rank-space pre-pass (``csrc/fused_expert.cu``: ``kXuTileR``,

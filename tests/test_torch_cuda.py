@@ -97,11 +97,14 @@ def test_fused_kernel_matches_plain(dev, bits, c, path, group):
         torch.testing.assert_close(got, want, **FUSED_TOL)
 
 
+@pytest.mark.parametrize("n", [256, 1412])
 @pytest.mark.parametrize("c", [1, 4, 37])
-def test_fused_kernel_skips_empty_slots(dev, c):
+def test_fused_kernel_skips_empty_slots(dev, c, n):
     """rows[e] = occupied leading slots: tiles past it and idle experts
-    give zeros without reading weights, as the plain version computes."""
-    args = list(_fused_args(dev, 4, c, 128, 256, 32, 2, gated=True,
+    give zeros without reading weights, as the plain version computes; at
+    N 1412 (no multiple of 16 or 128: a last column tile of 4 columns) as
+    at N 256."""
+    args = list(_fused_args(dev, 4, c, 128, n, 32, 2, gated=True,
                             cap=None, eb=[2] * 4, seed=c))
     rows = torch.tensor([0, c, c // 2, 1], dtype=torch.int32, device=dev)
     live = (torch.arange(c, device=dev)[None] < rows[:, None]).float()
@@ -174,13 +177,14 @@ def test_fused_mma_path_is_deterministic(dev):
     assert torch.equal(got, again)
 
 
-def _rank_space_args(dev, C, R, ranks, cap, seed):
+def _rank_space_args(dev, C, R, ranks, cap, seed, bits=2, eb=(2, 1, 2, 2)):
     """Decode-sized operands for the rank-space work: E 4, K 256, N 260
     (a ragged last column tile), pad rank R, the given true ranks, every
     slot occupied, each token tile holding compensated rows beside rows
-    whose mask is 0 (alternate slots), gated."""
-    args = list(_fused_args(dev, 4, C, 256, 260, R, 2, gated=True, cap=cap,
-                            eb=[2, 1, 2, 2], seed=seed))
+    whose mask is 0 (alternate slots), gated; ``bits`` the container,
+    ``eb`` each expert's true width."""
+    args = list(_fused_args(dev, 4, C, 256, 260, R, bits, gated=True,
+                            cap=cap, eb=list(eb), seed=seed))
     me = torch.zeros((4, C), device=dev)
     me[:, 0::2] = 1.0
     me[1, :] = 1.0                      # one expert with every row
@@ -210,36 +214,70 @@ def test_fused_decode_rank_space_matches_plain(dev, c, cap, pad):
 
 
 def test_fused_simt_path_is_deterministic(dev):
-    """The CUDA-core path at decode with a rank-1024 expert compensated
-    (the cluster pre-pass and the split epilogue) returns the same bits
-    on every call."""
-    for c in (4, 16):
+    """The decode path with a rank-1024 expert compensated (the cluster
+    pre-pass, the K walk at the tile's occupied slots, the split rank
+    walk) returns the same bits on every call, at C 4, 16 and 95 (the top
+    of the decode path), and a call captured in a CUDA graph at C 16
+    replays to the same bits."""
+    for c in (4, 16, 95):
         args = _rank_space_args(dev, c, 1024, [1024, 1024, 517, 0], None,
                                 seed=5 + c)
         got = qm._launch_fused("simt", *args, bits=2, group_size=64)
         again = qm._launch_fused("simt", *args, bits=2, group_size=64)
         torch.cuda.synchronize()
-        assert torch.equal(got, again)
-
-
-def test_fused_decode_row_is_routing_independent(dev):
-    """A token's output row is bit-equal whether it shares the call with
-    no other token (C 1), with 3 (C 4, a decode step) or with 15 (C 16, a
-    verify round): the pre-pass's and the epilogue's sums run in an order
-    fixed by K and the rank, not by C or the other tokens."""
+        assert torch.equal(got, again), c
     args = _rank_space_args(dev, 16, 1024, [1024, 1024, 517, 0], None,
-                            seed=11)
-    full = qm.fused_expert_matmul(*args, bits=2, group_size=64,
+                            seed=21)
+    kw = dict(bits=2, group_size=64, require_kernel=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qm.fused_expert_matmul(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.fused_expert_matmul(*args, **kw)
+    want = qm.fused_expert_matmul(*args, **kw)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("bits,eb,c,rows", [
+    (2, (2, 1, 2, 2), 16, False), (2, (2, 1, 2, 2), 95, True),
+    (3, (3, 2, 3, 1), 16, True), (3, (3, 2, 3, 1), 95, False),
+    (8, (8, 4, 2, 8), 16, True), (8, (8, 4, 2, 8), 95, False)])
+def test_fused_decode_row_is_routing_independent(dev, bits, eb, c, rows):
+    """A token's output row is bit-equal whether it shares the call with
+    no other token (C 1), with 3 (C 4, a decode step), with 15 (C 16, a
+    verify round) or with 94 (C 95, the top of the decode path): the
+    pre-pass's and the decode kernel's sums run in an order fixed by K and
+    the rank, not by C or the other tokens.  Also at 3 and 8 bits with
+    heterogeneous expert widths, and with occupied-slot counts (slots past
+    them empty, in the full call and in each part), so the K walk runs at
+    1, 2, 4 and 8 slots for the same token."""
+    args = _rank_space_args(dev, c, 1024, [1024, 1024, 517, 0], None,
+                            seed=11, bits=bits, eb=eb)
+    occ = [c, c - 5, c // 2, 3] if rows else None
+    if rows:
+        args = list(_with_rows(args, occ))
+    full = qm.fused_expert_matmul(*args, bits=bits, group_size=64,
                                   require_kernel=True)
-    for s0, c in ((0, 1), (7, 1), (8, 1), (15, 1), (8, 4), (12, 4)):
+    parts = [(0, 1), (7, 1), (8, 1), (15, 1), (8, 4), (12, 4)]
+    if c > 16:
+        parts += [(0, 16), (40, 16), (79, 16), (94, 1), (2, 4)]
+    for s0, n in parts:
         part = list(args)
-        part[0] = args[0][:, s0:s0 + c].contiguous()
-        part[8] = args[8][:, s0:s0 + c].contiguous()
-        part[9] = args[9][:, s0:s0 + c].contiguous()
-        got = qm.fused_expert_matmul(*part, bits=2, group_size=64,
+        for i in (0, 8, 9):
+            part[i] = args[i][:, s0:s0 + n].contiguous()
+        if rows:
+            part[13] = torch.tensor([min(max(o - s0, 0), n) for o in occ],
+                                    dtype=torch.int32, device=dev)
+        got = qm.fused_expert_matmul(*part, bits=bits, group_size=64,
                                      require_kernel=True)
         torch.cuda.synchronize()
-        assert torch.equal(got, full[:, s0:s0 + c]), (s0, c)
+        assert torch.equal(got, full[:, s0:s0 + n]), (s0, n)
 
 
 def test_fused_call_replays_in_a_cuda_graph(dev):

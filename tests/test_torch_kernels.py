@@ -147,9 +147,9 @@ def _kernel_fused_mma_min_c() -> int:
 
 @pytest.mark.parametrize("c", [1, 4, "below", "at", "above", 1024])
 def test_fused_path_choice_mirrors_the_kernel(c):
-    """The wrapper's mirror of the fused kernel's path choice: the CUDA
-    cores below ``kFusedMmaMinC`` (decode, C = batch 4, among them), the
-    tensor cores from it (exact-capacity prefill, C = 4 x 256)."""
+    """The wrapper's mirror of the fused kernel's path choice: the decode
+    kernel below ``kFusedMmaMinC`` (decode, C = batch 4, among them), the
+    prefill tile from it (exact-capacity prefill, C = 4 x 256)."""
     t = _kernel_fused_mma_min_c()
     assert tqm.FUSED_MMA_MIN_C == t
     c = {"below": t - 1, "at": t, "above": t + 1}.get(c, c)
@@ -166,6 +166,55 @@ def test_prepass_constants_mirror_the_kernel(name, const):
     ranks per work item, blocks per cluster and clusters per grid below
     ``kFusedMmaMinC``, warps per block."""
     assert getattr(tqm, name) == _kernel_constant(const)
+
+
+def _kernel_walk_choice() -> list:
+    """The decode main kernel's choice of walk slots, as
+    ``csrc/fused_expert.cu`` writes it, in order: [(condition on CT and
+    live as Python (None for the last branch), slots), ...]."""
+    src = (Path(tqm.__file__).parent / "csrc" / "fused_expert.cu").read_text()
+    chain = re.findall(r"(?:(?:else )?if \(([^()]*)\)|else) FE_WALK\((\d+)\);",
+                       src)
+    return [(c.replace("||", " or ").replace("&&", " and ") if c else None,
+             int(w)) for c, w in chain]
+
+
+def _kernel_walk_slots(chain, tile: int, occupied: int) -> int:
+    """The slots the kernel's branch chain gives a tile of ``tile`` slots
+    holding ``occupied`` tokens (``FE_WALK`` clamps to the tile)."""
+    for cond, w in chain:
+        if cond is None or eval(cond, {}, {"CT": tile, "live": occupied}):
+            return min(w, tile)
+    raise AssertionError("no branch taken")
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 8, 16, 21, 64, 95])
+def test_decode_walk_slots_mirror_the_kernel(c):
+    """The wrapper's mirror of the decode main kernel's token slots per K
+    walk: for every token tile of capacity c and every rows[e], the branch
+    the kernel takes is what ``walk_slots`` says; the walk holds the
+    tile's tokens and never exceeds the tile (``token_tile(c)``), an
+    expert holding one token costs one multiply-add per weight at the
+    decode step (C 4) and in a verify round (C 16) alike, an 8-slot tile
+    walks the smallest of 1, 2, 4, 8 that holds its tokens, and a smaller
+    tile 1 slot or all of them."""
+    chain = _kernel_walk_choice()
+    assert sorted(w for _, w in chain) == [1, 2, 4, 8]
+    assert chain[-1][0] is None and all(x for x, _ in chain[:-1])
+    tile = tqm.token_tile(c)
+    for rows in range(c + 1):
+        for c0 in range(0, c, tile):
+            occupied = min(rows, c) - c0
+            if occupied <= 0:
+                continue
+            got = tqm.walk_slots(c, occupied)
+            assert got == _kernel_walk_slots(chain, tile, occupied)
+            assert min(occupied, tile) <= got <= tile
+            if tile == 8:
+                assert got == tqm.token_tile(occupied)
+            else:
+                assert got in (1, tile)
+    assert tqm.walk_slots(c, 1) == 1
 
 
 @pytest.mark.parametrize("c", [1, 4, 16, 95, 96, 1024])
