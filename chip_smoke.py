@@ -48,8 +48,10 @@ Phases:
                 FFNs compressed to E = 1 stacks): the same as phase 3
                 (graph against eager, the profiles, teacher-forced),
                 then the dense-path kernels timed as in phase 4, with
-                quant_matmul's prefill (tensor-core path) beside both its
-                bounds and w1/w2 on both of its paths at small M
+                quant_matmul's decode kernel (its cluster geometry, the
+                call and the K walk alone, one kernel per call by the
+                profiler's names), its prefill (tensor-core path) beside
+                both its bounds and w1/w2 on both of its paths at small M
   6. bf16       phases 3 and 5 again, the weights initialised and
                 compressed in bf16, each held to a bf16 impl='ref' engine
                 under LOGIT_TOL_BF16
@@ -352,10 +354,13 @@ def qmm_case_inputs(gen, dev, M, K, N, R, bits, mask_mode="ones", cap=None):
 
 def qmm_kernel_cases(dev, gen):
     """Kernel 3 against its plain version: the three Llama-3.2-3B
-    projections at decode (M 4, split-K path) and prefill (M 1024,
-    tensor-core path), 2 bits, rank 32, every token compensated; then
-    other widths, ragged M on both paths, a mask with zeros, a rank cap
-    below R, and no compensation at all."""
+    projections at decode (M 4, the one-launch decode kernel, K split
+    over a cluster) and prefill (M 1024, tensor-core path), 2 bits, rank
+    32, every token compensated; then other widths, ragged M on both
+    paths, the decode kernel's token tiles of 1 and 2 (M 1, 2, 3), a K
+    whose pack blocks the cluster does not split evenly (K 1408, 22 pack
+    blocks), a mask with zeros, a rank cap below R, and no compensation
+    at all."""
     from repro_torch.kernels import quant_matmul as qm
     worst = 0.0
     cases = [(proj, M, K, N, 2, "ones", None)
@@ -367,6 +372,13 @@ def qmm_kernel_cases(dev, gen):
               ("w2", 4, 8192, 3072, 2, "zeros", None),
               ("w1", 33, 3072, 8192, 4, "ones", 0),
               ("w1", 1, 3072, 8192, 2, None, None)]
+    # the decode kernel's edges: token tiles of 1 and 2, uneven K splits
+    cases += [("w1", 1, 3072, 8192, 2, "ones", None),
+              ("w2", 2, 8192, 3072, 2, "half", None),
+              ("w1", 3, 3072, 8192, 3, "half", 20),
+              ("w2", 3, 8192, 3072, 2, None, None),
+              ("k1408", 4, 1408, 2048, 2, "half", 20),
+              ("k1408", 16, 1408, 2048, 3, "ones", None)]
     # the tensor-core path (M >= MMA_MIN_M): ragged M, 3 and 8 bits
     cases += [("w1", 129, 3072, 8192, 3, "half", 20),
               ("w2", 129, 8192, 3072, 8, "half", 20),
@@ -382,6 +394,10 @@ def qmm_kernel_cases(dev, gen):
         ref = qm.quant_matmul_plain(*args, bits=bits, group_size=64)
         name = (f"quant_matmul {proj} M={M} K={K} N={N} bits={bits} R=32 "
                 f"mask={mask_mode} cap={cap}")
+        if qm.qmm_path(M) == "splitk":
+            cs, kch = qm.decode_splits(dev, M, K, N, 32 if mask_mode else 0,
+                                       bits)
+            name += f" cluster={cs}x{kch}"
         mx = allclose_report(name, got, ref, **FUSED_TOL)
         worst = max(worst, mx)
         log(f"  ok  {name}  max|diff| {mx:.3e}")
@@ -1946,9 +1962,9 @@ def qmm_bytes_ops(M, K, N, planes, R):
 
 
 def qmm_crossover(dev, gen, st, qt, flush, proj):
-    """One projection at small M on both kernel paths (split-K on the CUDA
-    cores, the tensor-core tile): {M: {path: device ms}}, the timings the
-    path threshold MMA_MIN_M rests on."""
+    """One projection at small M on both kernel paths (the decode kernel
+    on the CUDA cores, the tensor-core tile): {M: {path: device ms}}, the
+    timings the path threshold MMA_MIN_M rests on."""
     from repro_torch.kernels import quant_matmul as qm
     K, N = qt.shape
     kw = dict(bits=qt.bits, group_size=qt.group_size)
@@ -1960,10 +1976,25 @@ def qmm_crossover(dev, gen, st, qt, flush, proj):
         out[M] = {p: _ms(f"crossover {proj} {p} M={M}", time_ms(
             lambda: qm._launch_qmm(p, *args, **kw), 10, flush))
                   for p in ("splitk", "mma")}
-        log(f"  crossover {proj} M={M}: split-K {out[M]['splitk']:.4f} ms, "
-            f"tensor cores {out[M]['mma']:.4f} ms on the device (the "
+        log(f"  crossover {proj} M={M}: decode kernel "
+            f"{out[M]['splitk']:.4f} ms, tensor cores {out[M]['mma']:.4f} "
+            f"ms on the device (the "
             f"wrapper takes {qm.qmm_path(M)}; MMA_MIN_M {qm.MMA_MIN_M})")
     return out
+
+
+def qmm_one_launch(fn, flush, what: str) -> None:
+    """Fail unless a call of ``fn`` (quant_matmul below MMA_MIN_M) runs
+    one kernel on the card, the decode kernel: the profiler's kernels by
+    name over 20 calls."""
+    calls = 20
+    by = kernels_by_name(fn, flush, calls)
+    log(f"  quant_matmul {what} call's kernels (profiler, {calls} calls): "
+        + "; ".join(f"{n[:60]} x{c} {ms:.4f} ms" for n, (ms, c)
+                    in by.items()))
+    if len(by) != 1 or "qmm_decode_kernel" not in next(iter(by)):
+        fail(f"a {what} quant_matmul at decode is not one launch of the "
+             f"decode kernel: {sorted(by)}")
 
 
 def dense_timing(dev, sl):
@@ -1971,7 +2002,9 @@ def dense_timing(dev, sl):
     prefill (M = B*P), every token compensated, beside its plain version,
     its bounds (f32 CUDA cores and, for the tensor-core path, bf16 tensor
     cores), and (context only) cuBLAS ``x @ W`` on the dequantized f32
-    weight; w1 and w2 on both paths at small M (the path threshold); and
+    weight; at decode the cluster geometry, w1's call without
+    compensation (the K walk alone) and the check that a call is one
+    kernel; w1 and w2 on both paths at small M (the path threshold); and
     flash-decode at the dense slice's decode shape (G = 3)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
@@ -2000,19 +2033,40 @@ def dense_timing(dev, sl):
             nb, ops_n = qmm_bytes_ops(M, K, N, qt.planes, st.pad_rank)
             bms, by = bound(nb, ops_n)
             tms, tby = tc_bound(nb, ops_n)
-            ks, kch = qm.qmm_splits(M, K, N)
+            if qm.qmm_path(M) == "splitk":
+                cs, kch = qm.decode_splits(dev, M, K, N, st.pad_rank,
+                                           qt.bits)
+                tiles = -(-M // qm.token_tile(M)) * -(-N // qm.QMM_BN)
+                clusters, per_sm = qm.decode_occupancy(
+                    dev, qt.bits, M, st.pad_rank, cs)
+                geo = (f"decode kernel: {tiles} clusters of {cs} blocks x "
+                       f"{kch} pack blocks ({kch / qm.QMM_WARPS:.2f} per "
+                       f"warp), {clusters} clusters resident at once, "
+                       f"{per_sm} blocks per SM")
+            else:
+                geo = "tensor cores"
             log(f"  quant_matmul {proj} M={M} K={K} N={N} bits={qt.bits} "
-                f"R={st.pad_rank} path={qm.qmm_path(M)} K-splits={ks}: "
+                f"R={st.pad_rank} path={qm.qmm_path(M)} ({geo}): "
                 f"kernel {_fmt(kt)}; plain {_fmt(pt)}; dense f32 cuBLAS "
                 f"x@W (16x the weight bytes, context) {_fmt(dt)}; bound "
                 f"f32 CUDA cores {bms:.4f} ms ({by}; {nb / 1e6:.2f} MB, "
                 f"{ops_n / 1e9:.3f} GFLOP), bf16 tensor cores x2 "
                 f"{tms:.4f} ms ({tby})")
             if proj == "w1" and M == B:
+                wt = time_ms(lambda: qm.quant_matmul(
+                    *args[:4], require_kernel=True, **kw), 20, flush)
+                log(f"  quant_matmul {proj} M={M} without compensation "
+                    f"(the K walk alone): {_fmt(wt)}")
+                qmm_one_launch(lambda: qm.quant_matmul(
+                    *args, require_kernel=True, **kw), flush, "compensated")
+                qmm_one_launch(lambda: qm.quant_matmul(
+                    *args[:4], require_kernel=True, **kw), flush,
+                    "uncompensated")
                 table["quant_matmul"] = dict(
                     ms=_ms("quant_matmul kernel", kt),
                     plain_ms=_ms("quant_matmul plain", pt), bound_ms=bms,
-                    bound_by=by, library_ms=None)
+                    bound_by=by, library_ms=None,
+                    walk_ms=_ms("quant_matmul walk", wt))
             if proj == "w1" and M == B * sl["P"]:
                 table["quant_matmul"].update(
                     prefill_ms=_ms("quant_matmul prefill kernel", kt),
@@ -2026,7 +2080,7 @@ def dense_timing(dev, sl):
     for M, t1 in cross["w1"].items():
         t2 = cross["w2"][M]
         layer = {p: 2 * t1[p] + t2[p] for p in t1}
-        log(f"  crossover per layer (w1 + w3 + w2) M={M}: split-K "
+        log(f"  crossover per layer (w1 + w3 + w2) M={M}: decode kernel "
             f"{layer['splitk']:.4f} ms, tensor cores {layer['mma']:.4f} ms")
     flash_slice_timing(dev, gen, flush, sl)
     return table

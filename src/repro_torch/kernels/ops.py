@@ -63,7 +63,9 @@ def lowrank_comp_matmul(x: torch.Tensor, qt: QuantizedTensor,
     ``rank_cap`` (scalar or (1,) tensor, None = full padded rank) zeroes
     rank dims >= cap.  The rank-space activation, which the JAX package
     computes outside its Pallas kernel, is computed inside the CUDA
-    kernel here, so one projection is one kernel call (two launches)."""
+    kernel here, so one projection is one kernel call: one launch below
+    ``MMA_MIN_M`` tokens (decode), two from it (the tensor-core tile,
+    then the epilogue)."""
     out_dtype = out_dtype or x.dtype
     impl = resolve_impl(impl)
     if impl == "ref":

@@ -34,17 +34,18 @@ path):
     y = x @ dequant(W) [+ mask_r((x * mask) @ (U u_s)) v_s @ V]
 
 Its kernel (``csrc/quant_matmul.cu``) has two paths, chosen by the token
-count M: below ``MMA_MIN_M`` (decode) it splits K over CUDA-core blocks;
+count M: below ``MMA_MIN_M`` (decode) one launch whose CUDA-core blocks
+split K over a thread-block cluster and sum the splits, the rank-space
+work and the epilogue inside it (``qmm_splits`` mirrors the geometry);
 from ``MMA_MIN_M`` (prefill) one block per 64 x 128 output tile runs
 bf16 ``mma.sync`` on the exact codes with x split into bf16 parts (hi and
-lo; a third for 8-bit codes).
-A second launch adds the compensation epilogue (and, on the split-K path,
-sums the splits).
+lo; a third for 8-bit codes), and a second launch adds the compensation
+epilogue.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -54,8 +55,6 @@ from .build import LaunchCounter, check, load
 launches = LaunchCounter()          # fused_expert_matmul
 fused_mma_launches = LaunchCounter()  # ... of them on the tensor-core path
 qmm_launches = LaunchCounter()      # quant_matmul
-
-_TARGET_BLOCKS = 264                # two blocks per SM of an H100
 
 
 def fused_expert_matmul_plain(xe, planes, scale, zero, u, u_scale, v,
@@ -342,30 +341,91 @@ def token_tile(m: int) -> int:
 
 
 # Tokens from which quant_matmul runs its tensor-core path
-# (``csrc/quant_matmul.cu::kMmaMinM``); below it, the split-K path.
+# (``csrc/quant_matmul.cu::kMmaMinM``); below it, the decode kernel.
 MMA_MIN_M = 128
 
 
 def qmm_path(M: int) -> str:
     """The kernel path ``quant_matmul_forward`` takes for M tokens:
-    'mma' (tensor cores) from ``MMA_MIN_M``, else 'splitk'."""
+    'mma' (tensor cores) from ``MMA_MIN_M``, else 'splitk' (the decode
+    kernel, K split over a cluster)."""
     return "mma" if M >= MMA_MIN_M else "splitk"
 
 
-def qmm_splits(M: int, K: int, N: int,
-               path: Optional[str] = None) -> Tuple[int, int]:
+# The decode kernel: blocks per cluster at most (``kMaxCluster``), warps
+# per block, output columns per block
+QMM_MAX_CLUSTER = 8
+QMM_WARPS = 8
+QMM_BN = 128
+# The H100's SMs, and the decode kernel's clusters it holds at once by
+# cluster size (cudaOccupancyMaxActiveClusters for 2 bits, token tile 4,
+# rank 32, one block per SM; ``tools/qmm_decode_timing.py`` prints them):
+# the defaults of ``qmm_splits``, which the wrapper replaces by the card's
+# own counts
+H100_SMS = 132
+H100_DECODE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                        8: 15}
+
+
+def qmm_splits(M: int, K: int, N: int, path: Optional[str] = None,
+               clusters: Optional[Callable[[int], int]] = None,
+               sms: int = H100_SMS) -> Tuple[int, int]:
     """(K splits, pack blocks per split) of the quant_matmul kernel on
     ``path`` (None: ``qmm_path(M)``).  The mma path never splits: (1,
-    K/64).  The split-K path takes enough splits for about two blocks per
-    SM, each split at least one 64-row pack block per warp (8), no split
-    empty."""
+    K/64).  The decode path splits K over a cluster of CS <= 8 blocks,
+    each walking ``kch`` pack blocks (none empty, K covered exactly), on
+    a grid of ``ceil(M/ct) * ceil(N/128)`` clusters.  Of the cluster sizes
+    whose grid the card holds at once (``clusters(cs)``: clusters resident
+    at once; default the H100's), it takes the one with the least time
+    per SM: the grid's waves of ``sms`` blocks (one block per SM) times
+    the pack blocks per warp (``kch / 8``) plus 1 for the first load,
+    which nothing overlaps; a tie goes to the smaller cluster."""
     n_pb = K // PACK_BLOCK
     if (path or qmm_path(M)) == "mma":
         return 1, n_pb
-    tiles = -(-M // token_tile(M)) * -(-N // 128)
-    ks = max(1, min(-(-_TARGET_BLOCKS // tiles), n_pb // 8))
-    kch = -(-n_pb // ks)
-    return -(-n_pb // kch), kch
+    resident = clusters or H100_DECODE_CLUSTERS.__getitem__
+    base = -(-M // token_tile(M)) * -(-N // QMM_BN)
+    best = None
+    for cs in range(1, min(QMM_MAX_CLUSTER, n_pb) + 1):
+        kch = -(-n_pb // cs)
+        if -(-n_pb // kch) != cs or (cs > 1 and base > resident(cs)):
+            continue                # a split empty, or more than one wave
+        cost = -(-base * cs // sms) * (kch / QMM_WARPS + 1)
+        if best is None or cost < best[0]:
+            best = (cost, cs, kch)
+    return best[1], best[2]
+
+
+_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
+
+
+def decode_occupancy(dev: torch.device, bits: int, M: int, R: int,
+                     cs: int) -> Tuple[int, int]:
+    """(clusters of ``cs`` blocks the card holds at once, blocks per SM) of
+    the decode kernel's instantiation for ``bits`` and M tokens at rank R
+    (0: no compensation), asked once per device and key."""
+    key = (dev.index or 0, bits, token_tile(M), R, cs)
+    if key not in _OCCUPANCY:
+        fn = load("quant_matmul.cu").quant_matmul_decode_occupancy
+        if fn.argtypes is None:
+            i = ctypes.c_int
+            fn.argtypes = [i] * 4 + [ctypes.c_void_p] * 2
+            fn.restype = i
+        n, b = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            check(fn(bits, M, R, cs, ctypes.byref(n), ctypes.byref(b)),
+                  "quant_matmul_decode_occupancy")
+        _OCCUPANCY[key] = (n.value, b.value)
+    return _OCCUPANCY[key]
+
+
+def decode_splits(dev: torch.device, M: int, K: int, N: int, R: int,
+                  bits: int) -> Tuple[int, int]:
+    """``qmm_splits`` of the decode path on the card ``dev``: its SM count
+    and the kernel's clusters resident at once for these arguments."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return qmm_splits(M, K, N, "splitk", sms=sms, clusters=lambda cs:
+                      decode_occupancy(dev, bits, M, R, cs)[0])
 
 
 def quant_matmul(x: torch.Tensor, planes: Tuple[torch.Tensor, ...],
@@ -428,12 +488,14 @@ def _launch_qmm(path: Optional[str], x, planes, scale, zero, u, u_scale, v,
     if mma and xf.data_ptr() % 16:      # the mma path copies x by 16 bytes
         xf = xf.clone()
     mf = None if mask is None or not comp else mask.float().contiguous()
-    ks, kch = qmm_splits(M, K, N, "mma" if mma else "splitk")
-    # the mma path without compensation writes out directly
-    partial = (None if mma and not comp else
-               torch.empty((ks, M, N), dtype=torch.float32, device=dev))
-    xu_part = (torch.empty((ks, M, R), dtype=torch.float32, device=dev)
-               if comp else None)
+    ks, kch = (qmm_splits(M, K, N, "mma") if mma else
+               decode_splits(dev, M, K, N, R, bits))
+    # scratch of the compensated mma path (its second launch adds xu @ V);
+    # the decode kernel and the uncompensated mma path write out directly
+    partial = (torch.empty((M, N), dtype=torch.float32, device=dev)
+               if mma and comp else None)
+    xu_part = (torch.empty((M, R), dtype=torch.float32, device=dev)
+               if mma and comp else None)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     p1 = _ptr(planes[1], torch.uint8, "planes[1]", dev) \
         if len(planes) > 1 else None

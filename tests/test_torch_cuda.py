@@ -881,6 +881,122 @@ def test_quant_matmul_kernel_wide_groups(dev, m, group):
     torch.testing.assert_close(got, want, **FUSED_TOL)
 
 
+# Llama-3.2-3B's dense FFN projections (K, N): w1 / w3 and w2
+_LLAMA = {"w1": (3072, 8192), "w2": (8192, 3072)}
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 16, 33, 127])
+@pytest.mark.parametrize("proj", ["w1", "w2"])
+def test_quant_matmul_decode_llama_shapes(dev, proj, m):
+    """The decode kernel (one launch, K split over a cluster) at
+    Llama-3.2-3B's projections, every token compensated, at every token
+    tile width and ragged M below MMA_MIN_M."""
+    k, n = _LLAMA[proj]
+    assert qm.qmm_path(m) == "splitk"
+    args = _qmm_args(dev, m, k, n, 32, 2, m + k, mask_mode="ones")
+    before = qm.qmm_launches.n
+    got = qm.quant_matmul(*args, bits=2, group_size=64, require_kernel=True)
+    assert qm.qmm_launches.n == before + 1
+    want = qm.quant_matmul_plain(*args, bits=2, group_size=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("mask_mode,cap,r",
+                         [("ones", None, 32), ("half", 17, 32),
+                          ("zeros", None, 32), ("half", 0, 32),
+                          ("none", 40, 32), ("half", None, 0)])
+def test_quant_matmul_decode_bits_masks_caps(dev, bits, mask_mode, cap, r):
+    """The decode kernel at Llama's w1 at M 4 (a decode step of batch 4)
+    for every width: masks of ones, half and zeros, rank caps below R, 0
+    and above R, and no compensation (r 0)."""
+    k, n = _LLAMA["w1"]
+    args = _qmm_args(dev, 4, k, n, r, bits, bits * 7 + (cap or 0),
+                     mask_mode=mask_mode, cap=cap)
+    got = qm.quant_matmul(*args, bits=bits, group_size=64,
+                          require_kernel=True)
+    want = qm.quant_matmul_plain(*args, bits=bits, group_size=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 16])
+@pytest.mark.parametrize("group", [64, 128])
+def test_quant_matmul_decode_uneven_k(dev, m, group):
+    """K 1408 (22 pack blocks, DeepSeek-MoE's expert width) split over a
+    cluster whose blocks do not all walk the same number of pack blocks,
+    in groups of one and of two pack blocks."""
+    k, n = 1408, 2048
+    cs, kch = qm.decode_splits(dev, m, k, n, 32, 3)
+    assert cs > 1 and (k // 64) % kch != 0
+    args = _qmm_args(dev, m, k, n, 32, 3, m + group, mask_mode="half",
+                     cap=20, group=group)
+    got = qm.quant_matmul(*args, bits=3, group_size=group,
+                          require_kernel=True)
+    want = qm.quant_matmul_plain(*args, bits=3, group_size=group)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+@pytest.mark.parametrize("proj", ["w1", "w2"])
+def test_quant_matmul_decode_is_deterministic(dev, proj):
+    """The decode kernel returns the same bits on every call: the cluster
+    sums its blocks' partials and rank-space shares in a fixed order (no
+    atomics)."""
+    k, n = _LLAMA[proj]
+    for m in (1, 4, 16):
+        args = _qmm_args(dev, m, k, n, 32, 2, m, mask_mode="half")
+        outs = [qm.quant_matmul(*args, bits=2, group_size=64,
+                                require_kernel=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("r", [32, 0])
+def test_quant_matmul_decode_is_one_launch(dev, r):
+    """A compensated (r 32) or uncompensated (r 0) call at M 4 is one
+    kernel on the card, the decode kernel: over 5 calls the profiler sees
+    no other kernel and at most 5 launches (it may miss one now and
+    then), and the wrapper counts one launch per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    k, n = _LLAMA["w1"]
+    args = _qmm_args(dev, 4, k, n, r, 2, 5, mask_mode="ones")
+    qm.quant_matmul(*args, bits=2, group_size=64, require_kernel=True)
+    torch.cuda.synchronize()
+    before = qm.qmm_launches.n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            qm.quant_matmul(*args, bits=2, group_size=64,
+                            require_kernel=True)
+        torch.cuda.synchronize()
+    assert qm.qmm_launches.n == before + 5
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    assert 1 <= len(names) <= 5, names
+    assert all("qmm_decode_kernel" in nm for nm in names), names
+
+
+def test_quant_matmul_decode_geometry_on_card(dev):
+    """On this card the wrapper's decode geometry for Llama's projections
+    at M 1..8: one wave of at most one block per SM (the clusters fit at
+    the occupancy the card reports), at least two pack blocks per warp,
+    every split non-empty and K covered exactly."""
+    for k, n in _LLAMA.values():
+        for m in range(1, 9):
+            cs, kch = qm.decode_splits(dev, m, k, n, 32, 2)
+            n_pb = k // 64
+            assert (cs - 1) * kch < n_pb <= cs * kch
+            assert n_pb - (cs - 1) * kch >= 2 * qm.QMM_WARPS
+            tiles = -(-m // qm.token_tile(m)) * -(-n // qm.QMM_BN)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            assert tiles * cs <= sms
+            assert cs == 1 or tiles <= qm.decode_occupancy(
+                dev, 2, m, 32, cs)[0]
+
+
 def test_dense_engine_kernels_match_ref_on_card(dev):
     from repro_torch.models.transformer import (compress_dense_params,
                                                 init_params)

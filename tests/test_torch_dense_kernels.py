@@ -130,42 +130,59 @@ def test_quant_matmul_cuda_impl_refuses_cpu_tensors():
 
 
 def test_qmm_splits_fill_the_card_at_decode():
-    """Llama-3.2-3B's projections at decode (M = 4): at least two blocks
-    per SM, at least 8 pack blocks (one per warp) per split, the splits
-    covering K exactly; prefill needs no split."""
+    """Llama-3.2-3B's projections at decode (M 1..8): one wave at the
+    H100's measured occupancy (the grid's clusters resident at once, at
+    most one block per SM), at least two pack blocks per warp, every
+    split non-empty and K covered exactly, clusters within the portable
+    size; prefill needs no split."""
     for k, n in ((3072, 8192), (8192, 3072)):
-        ks, kch = tqm.qmm_splits(4, k, n)
         n_pb = k // 64
-        assert (n // 128) * ks >= 264
-        assert kch >= 8 and (ks - 1) * kch < n_pb <= ks * kch
+        for m in range(1, 9):
+            cs, kch = tqm.qmm_splits(m, k, n)
+            tiles = -(-m // tqm.token_tile(m)) * (n // tqm.QMM_BN)
+            assert 1 <= cs <= tqm.QMM_MAX_CLUSTER
+            assert cs == 1 or tiles <= tqm.H100_DECODE_CLUSTERS[cs]
+            assert tiles * cs <= tqm.H100_SMS
+            assert (cs - 1) * kch < n_pb <= cs * kch
+            assert n_pb - (cs - 1) * kch >= 2 * tqm.QMM_WARPS
         assert tqm.qmm_splits(1024, k, n)[0] == 1
+
+
+def _kernel_constant(name: str) -> int:
+    """The ``constexpr int`` ``name`` as ``csrc/quant_matmul.cu`` defines
+    it."""
+    import re
+    from pathlib import Path
+    src = (Path(tqm.__file__).parent / "csrc" / "quant_matmul.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
 def _kernel_mma_min_m() -> int:
     """``kMmaMinM`` as ``csrc/quant_matmul.cu`` defines it."""
-    import re
-    from pathlib import Path
-    src = (Path(tqm.__file__).parent / "csrc" / "quant_matmul.cu").read_text()
-    return int(re.search(r"constexpr int kMmaMinM = (\d+);", src).group(1))
+    return _kernel_constant("kMmaMinM")
 
 
 @pytest.mark.parametrize("m", [1, 4, "below", "at", "above", 1024])
 def test_qmm_path_choice_mirrors_the_kernel(m):
-    """The wrapper's mirror of the kernel's path choice: the CUDA-core
-    split-K path below ``kMmaMinM`` tokens, with the decode splits of
-    Llama-3.2-3B unchanged (5 for w1/w3, 11 for w2 at M 4), and the
+    """The wrapper's mirror of the kernel's path choice: the decode
+    kernel below ``kMmaMinM`` tokens, with Llama-3.2-3B's decode geometry
+    on the H100 pinned (clusters of 2 blocks x 24 pack blocks for w1/w3,
+    of 4 x 32 for w2, at M 1..8), at most ``kMaxCluster`` blocks per
+    cluster, every split non-empty, K covered exactly; and the
     tensor-core path, one split of all K/64 pack blocks, from it."""
     t = _kernel_mma_min_m()
     assert tqm.MMA_MIN_M == t
+    assert tqm.QMM_MAX_CLUSTER == _kernel_constant("kMaxCluster")
     m = {"below": t - 1, "at": t, "above": t + 1}.get(m, m)
-    for k, n, decode_splits in ((3072, 8192, 5), (8192, 3072, 11)):
+    for k, n, decode in ((3072, 8192, (2, 24)), (8192, 3072, (4, 32))):
         ks, kch = tqm.qmm_splits(m, k, n)
         if m < t:
             assert tqm.qmm_path(m) == "splitk"
             assert (ks, kch) == tqm.qmm_splits(m, k, n, "splitk")
+            assert 1 <= ks <= tqm.QMM_MAX_CLUSTER
             assert (ks - 1) * kch < k // 64 <= ks * kch
-            if m == 4:
-                assert ks == decode_splits
+            if m <= 8:
+                assert (ks, kch) == decode
         else:
             assert tqm.qmm_path(m) == "mma"
             assert (ks, kch) == (1, k // 64)
