@@ -496,6 +496,69 @@ def qwen3_fused_cases(dev, gen) -> float:
     return worst
 
 
+# the new models' dense FFN projections (K, N) that kernel 3 serves as
+# E = 1 stacks: w1 / w3, then w2
+ZOO_QMM = {"gemma3_1b": ((1152, 6912), (6912, 1152)),
+           "gemma3_27b": ((5376, 21504), (21504, 5376)),
+           "qwen2_7b": ((3584, 18944), (18944, 3584))}
+# the MoE configs registered without a served cell: (E, top-k, top-n,
+# d_model, d_expert)
+ZOO_FUSED = {"llama4_scout": (16, 1, 1, 5120, 8192),
+             "mixtral_8x22b": (8, 2, 1, 6144, 16384)}
+
+
+def zoo_kernel_cases(dev, gen) -> tuple:
+    """Kernel 3 at each new dense projection (Gemma3-1B, Gemma3-27B,
+    Qwen2-7B; 2 bits, rank 32, every token compensated) at M 1 and 4
+    (the decode kernel) and 512 (the tensor cores); kernel 1 at
+    Llama-4-Scout's (E 16, top-1) and Mixtral-8x22B's (E 8, top-2) expert
+    grids, w1 and w2 at T 4 and 1024 of top-k dispatch, pad_rank 64, both
+    main-kernel paths forced, against the plain version in f64.  Returns
+    (kernel 1's largest |diff|, kernel 3's)."""
+    from repro_torch.kernels import quant_matmul as qm
+    qmm_worst = fused_worst = 0.0
+    for model, projs in ZOO_QMM.items():
+        for K, N in projs:
+            for M in (1, 4, 512):
+                args = qmm_case_inputs(gen, dev, M, K, N, 32, 2)
+                got = qm.quant_matmul(*args, bits=2, group_size=64,
+                                      require_kernel=True)
+                ref = qm.quant_matmul_plain(*args, bits=2, group_size=64)
+                name = (f"quant_matmul {model} M={M} K={K} N={N} bits=2 "
+                        f"R=32 path={qm.qmm_path(M)}")
+                if qm.qmm_path(M) == "splitk":
+                    cs, kch = qm.decode_splits(dev, M, K, N, 32, 2)
+                    name += f" cluster={cs}x{kch}"
+                mx = allclose_report(name, got, ref, **FUSED_TOL)
+                qmm_worst = max(qmm_worst, mx)
+                log(f"  ok  {name}  max|diff| {mx:.3e}")
+                del args, got, ref
+    for model, (E, top_k, top_n, d, fe) in ZOO_FUSED.items():
+        for K, N in ((d, fe), (fe, d)):
+            for T in (4, 1024):
+                xe, me, ge, rows = dispatch_like(gen, dev, E, T, K, top_k,
+                                                 top_n)
+                args = list(random_stack_inputs(gen, dev, E, 1, K, N, 64, 2,
+                                                False, "full", False))
+                args[0], args[8], args[13] = xe, me, rows
+                args[9] = ge if K == fe else None
+                ref = qm.fused_expert_matmul_plain(xe.double(), *args[1:],
+                                                   bits=2, group_size=64)
+                for path in ("simt", "mma"):
+                    got = qm._launch_fused(path, *args, bits=2,
+                                           group_size=64)
+                    name = (f"fused {model} path={path} E={E} K={K} N={N} "
+                            f"T={T} top-{top_k} top-n {top_n} pad_rank 64 "
+                            f"live experts {int((rows > 0).sum())} "
+                            f"gated={args[9] is not None}")
+                    mx = allclose_report(name, got, ref, **FUSED_TOL)
+                    fused_worst = max(fused_worst, mx)
+                    log(f"  ok  {name}  max|diff| {mx:.3e}")
+                del args, got, ref, xe, me, ge
+                torch.cuda.empty_cache()
+    return fused_worst, qmm_worst
+
+
 def kernel_phase(dev):
     from repro_torch.kernels import decode_attention as fd
     from repro_torch.kernels import quant_matmul as qm
@@ -602,6 +665,9 @@ def kernel_phase(dev):
     log(f"  ok  fused per-channel group K={K} N={N}  max|diff| {mx:.3e}")
 
     errs["quant_matmul"] = qmm_kernel_cases(dev, gen)
+    zoo_fused, zoo_qmm = zoo_kernel_cases(dev, gen)
+    errs["fused_expert_matmul"] = max(errs["fused_expert_matmul"], zoo_fused)
+    errs["quant_matmul"] = max(errs["quant_matmul"], zoo_qmm)
 
     # flash-decode: (B, H, KVH, hd, S, filled, kinds, windows); filled
     # "ring" is a wrapped ring cache, every slot written, positions out of
@@ -638,6 +704,13 @@ def kernel_phase(dev):
     for S, fills in ((512, [0, 17, 289, 512]), (1024, [41, 301, 701, 1001])):
         flash_cases += [(4, 32, 4, 128, S, filled, ("f32", "bf16"), (None,))
                         for filled in (288, fills)]
+    # the local layers' wrapped rings at decode, window = ring length:
+    # Gemma3-1B (G 4, KVH 1, hd 256) in f32 as phase 13 serves it,
+    # Gemma3-27B (G 2) in bf16; and Qwen2-7B's G 7 (28 / 4 heads, the G 8
+    # instantiation) in bf16, no window
+    flash_cases += [(4, 4, 1, 256, 512, "ring", ("f32", "bf16"), (512,)),
+                    (4, 32, 16, 128, 1024, "ring", ("bf16",), (1024,)),
+                    (4, 28, 4, 128, 512, 288, ("bf16", "f32"), (None,))]
     errs["flash_decode_attention"] = max(paged_kernel_cases(dev, gen),
                                          multi_query_cases(dev, gen))
     for B, H, KVH, hd, S, filled, kinds, windows in flash_cases:
@@ -1232,16 +1305,20 @@ def flash_bytes_ops(q, k, pos, cur, ks, window=None):
     return nb, 4 * n * H * hd
 
 
-def sdpa_call(q, k, v, pos, cur, ks):
-    """The yardstick: one ``scaled_dot_product_attention`` call (GQA, bool
-    mask) computing the same function, in the cache's float type; None for
-    an int8 cache, which no single PyTorch call reads."""
+def sdpa_call(q, k, v, pos, cur, ks, window=None):
+    """The yardstick: one ``scaled_dot_product_attention`` call (GQA, an
+    explicit (B, 1, 1, S) bool mask, with the window's bound where there
+    is one) computing the same function, in the cache's float type; None
+    for an int8 cache, which no single PyTorch call reads."""
     import torch.nn.functional as F
     if ks is not None:
         return None
     qs = q[:, :, None, :].to(k.dtype)
     kT, vT = k.transpose(1, 2), v.transpose(1, 2)
-    mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
+    valid = (pos >= 0) & (pos <= cur[:, None])
+    if window:
+        valid &= pos > cur[:, None] - window
+    mask = valid[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(
         qs, kT, vT, attn_mask=mask, scale=1.0, enable_gqa=True)
 
@@ -1270,19 +1347,29 @@ def flash_slice_timing(dev, gen, flush, sl, kind="f32") -> dict:
     """Flash-decode at a slice's decode shape (its cache bucket, the
     prompt and new tokens valid, a ``kind`` cache) beside its plain
     version, SDPA and its bound; the ``kernels`` line's entry."""
-    from repro_torch.kernels import decode_attention as fd
     cfg, B = sl["cfg"], sl["B"]
     H, KVH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     filled = sl["P"] + sl["NEW"]
     S = 1 << filled.bit_length()
     args = flash_inputs(gen, dev, B, H, KVH, hd, S, filled, kind)
+    return flash_timed(args, None, kind, flush,
+                       f"flash_decode B={B} H={H} KVH={KVH} (G={H // KVH}) "
+                       f"hd={hd} S={S} valid={filled} {kind}")
+
+
+def flash_timed(args, window, kind: str, flush, what: str) -> dict:
+    """Flash-decode on ``args`` (with ``window``) beside its plain
+    version, SDPA and its bound, held to both; the ``kernels`` line's
+    entry."""
+    from repro_torch.kernels import decode_attention as fd
     q, k, v, pos, cur, _, _ = args
     kt = time_ms(lambda: fd.flash_decode_attention(
-        *args, require_kernel=True), 20, flush)
-    pt = time_ms(lambda: fd.flash_decode_attention_plain(*args), 20, flush)
-    sd = sdpa_call(q, k, v, pos, cur, None)
+        *args, window=window, require_kernel=True), 20, flush)
+    pt = time_ms(lambda: fd.flash_decode_attention_plain(
+        *args, window=window), 20, flush)
+    sd = sdpa_call(q, k, v, pos, cur, None, window)
     lt = time_ms(sd, 20, flush)
-    got = fd.flash_decode_attention(*args, require_kernel=True)
+    got = fd.flash_decode_attention(*args, window=window, require_kernel=True)
     # SDPA runs in the cache's type: in bf16 its probabilities and output
     # round to 8 bits, so the kernel (f32 inside) is held to the plain
     # version there and to SDPA only within bf16's step
@@ -1290,10 +1377,10 @@ def flash_slice_timing(dev, gen, flush, sl, kind="f32") -> dict:
     allclose_report("flash_decode vs SDPA", got, sd()[:, :, 0].float(),
                     atol=tol, rtol=tol)
     allclose_report("flash_decode vs plain", got,
-                    fd.flash_decode_attention_plain(*args), **DECODE_TOL)
-    bms, by = bound(*flash_bytes_ops(q, k, pos, cur, None))
-    log(f"  flash_decode B={B} H={H} KVH={KVH} (G={H // KVH}) hd={hd} S={S} "
-        f"valid={filled} {kind}: kernel {_fmt(kt)}; plain {_fmt(pt)}; SDPA "
+                    fd.flash_decode_attention_plain(*args, window=window),
+                    **DECODE_TOL)
+    bms, by = bound(*flash_bytes_ops(q, k, pos, cur, None, window))
+    log(f"  {what}: kernel {_fmt(kt)}; plain {_fmt(pt)}; SDPA "
         f"{_fmt(lt)}; bound {bms:.4f} ms ({by})")
     return dict(ms=_ms("flash-decode kernel", kt),
                 plain_ms=_ms("flash-decode plain", pt), bound_ms=bms,
@@ -3277,6 +3364,309 @@ def spec_deepseek(dev, ds, resident, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: sliding-window models (Gemma3-1B, Gemma3-27B) and QKV biases
+# (Qwen2-7B), run after phase 12 (before phase 9)
+# ---------------------------------------------------------------------------
+
+# the depth cuts: Gemma3-27B's 62 layers are ~54 GB of bf16 weights, and
+# two 5 + 1 periods keep every position of the pattern (10 local and 2
+# global layers); Qwen2-7B's 28 layers go to 4 (QKV biases are the new
+# path; its widths stay as published)
+GEMMA3_27B_LAYERS = 12
+QWEN2_LAYERS = 4
+# cell -> (arch, depth (None: as published), dtype, prompt length)
+WINDOW_CELLS = {"gemma3_1b": ("gemma3-1b", None, torch.float32, 640),
+                "gemma3_27b": ("gemma3-27b", GEMMA3_27B_LAYERS,
+                               torch.bfloat16, 1280),
+                "qwen2_7b": ("qwen2-7b", QWEN2_LAYERS, torch.bfloat16, 256)}
+
+
+def window_config(arch: str, layers):
+    import dataclasses
+    from repro_torch.models.transformer import layer_specs
+    from repro_torch.registry import get_config
+    full = get_config(arch)
+    cut = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    kinds = [s.mixer for s in layer_specs(cut)]
+    log(f"  config {cut.name}: d_model {cut.d_model}, heads {cut.num_heads}"
+        f"/{cut.num_kv_heads} kv (G {cut.q_per_kv}), head_dim "
+        f"{cut.head_dim}, d_ff {cut.d_ff}, vocab {cut.vocab_size}, tied "
+        f"embeddings {cut.tie_embeddings}, act {cut.act}, rope theta "
+        f"{cut.rope_theta} (local {cut.rope_local_theta}), qkv bias "
+        f"{cut.qkv_bias}, post norms {cut.post_attn_norm}, scaled "
+        f"embeddings {cut.scale_embed}; {kinds.count('local')} local layers "
+        f"(window {cut.window_size}), {kinds.count('global')} global")
+    log("  depth " + (f"{full.num_layers} layers, as published (no cut)"
+                      if layers is None else
+                      f"cut: {full.num_layers} -> {layers} layers (widths "
+                      f"as published)"))
+    return cut
+
+
+def window_cell(dev, name: str) -> dict:
+    """One cell of phase 13: random weights from a seed (Qwen2-7B's QKV
+    biases seeded nonzero: the JAX package initialises them to zeros),
+    dense FFNs compressed to E = 1 stacks, then ``serve_slice`` (graph
+    against eager, the profiles) on 4 prompts and ``teacher_forced``
+    against the impl='ref' engine.  The eager loop must launch
+    flash-decode once per layer and step, with a window on every local
+    layer, and kernel 3 three times per layer and forward."""
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.models.transformer import (compress_dense_params,
+                                                init_params, layer_specs)
+    from repro_torch.serve.engine import ServeEngine
+    arch, layers, dtype, P = WINDOW_CELLS[name]
+    cfg = window_config(arch, layers)
+    B, NEW = 4, 32
+    n_local = sum(s.mixer == "local" for s in layer_specs(cfg))
+    log(f"  weights, activations and KV cache in {dtype}; {B} prompts x {P}"
+        f" tokens, {NEW} new")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    if cfg.qkv_bias:
+        gen = torch.Generator(device=dev).manual_seed(29)
+        for lp in params["layers"]:
+            for b in ("bq", "bk", "bv"):
+                t = lp["attn"][b]
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.5)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams, cfg_q = compress_dense_params(params, cfg)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    stacks = qparams["layers"][0]["ffn"]["stacks"]
+    log(f"  init {t_init:.2f} s; compression {t_comp:.2f} s "
+        f"({cfg.num_layers} dense layers x 3 E=1 stacks; layer-0 ranks "
+        f"{ {k: st.ranks[0] for k, st in stacks.items()} }); device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after compression")
+    prompts = np.random.default_rng(13).integers(
+        2, cfg.vocab_size, (B, P)).astype(np.int32)
+    sv = serve_slice(dev, cfg_q, qparams, prompts, NEW, {
+        "quant_matmul": qm.qmm_launches,
+        "flash_decode_attention": fd.launches,
+        "fused_expert_matmul": qm.launches,
+        "flash_decode_window": fd.window_launches})
+    eng, res = sv["engine"], sv["graph"]
+    launches, eager = sv["launches"], sv["eager_launches"]
+    window = {"graph": launches.pop("flash_decode_window"),
+              "eager": eager.pop("flash_decode_window")}
+    L = cfg.num_layers
+    want = {"flash_decode_attention": L * NEW, "quant_matmul": 3 * L * (NEW + 1),
+            "fused_expert_matmul": 0}
+    if eager != want or window["eager"] != n_local * NEW:
+        fail(f"{name}: the eager loop's launches {eager}, with a window "
+             f"{window['eager']}; expected {want}, with a window "
+             f"{n_local * NEW} (one per local layer and step)")
+    if min(launches["quant_matmul"], launches["flash_decode_attention"]) <= 0 \
+            or (n_local and window["graph"] <= 0):
+        fail(f"{name}: a kernel of the path was never launched: {launches},"
+             f" with a window {window['graph']}")
+    log(f"  {name}: eager loop launches flash-decode {L} times a step, "
+        f"{n_local} of them with a window (one per local layer), and "
+        f"kernel 3 {3 * L} times a forward (every FFN projection)")
+    check_generation(res, B, NEW, cfg.vocab_size)
+    if res.router_trace is not None:
+        fail("a dense model returned a router trace")
+    ref = ServeEngine(cfg_q, qparams, quantized=True, kernel_impl="ref",
+                      device=dev)
+    teacher_forced(eng, ref, prompts, res.tokens, 0, dtype)
+    del ref
+    torch.cuda.empty_cache()
+    return {"launches": launches, "eager_launches": eager, "window": window,
+            "engine": eng, "stacks": stacks, "cfg": cfg_q,
+            "profile": sv["profile"], "prefill_ms": res.prefill_s * 1e3,
+            "decode_tok_s": res.decode_tokens_per_s,
+            "eager_tok_s": sv["eager"].decode_tokens_per_s,
+            "compress_s": t_comp, "B": B, "P": P, "NEW": NEW}
+
+
+def logit_near_tie(eng, prompt, toks, other, step: int) -> float:
+    """The gap between ``toks[step]``'s and ``other[step]``'s logits as a
+    share of the largest |logit|, one request (``prompt``) teacher-forced
+    on ``toks`` up to ``step``."""
+    logits, caches = eng.prefill(prompt[None], len(toks))
+    ref = torch.as_tensor(np.asarray(toks, np.int32)[None], device=eng.device)
+    for t in range(step):
+        logits = eng.step(ref[:, t], caches).logits
+    lf = logits[0].float()
+    return float((lf[int(toks[step])] - lf[int(other[step])]).abs()
+                 / lf.abs().max())
+
+
+def window_serve(dev, cell, counters) -> dict:
+    """Gemma3-1B's engine (f32): 16 requests with prompts of 256..1024
+    tokens (on both sides of the window of 512; each prefilled at its
+    exact length), 4 slots, chunks of 8, 32 new, twice (identical; the
+    second profiled for the card's idle share); each request's tokens
+    against ``generate`` of its prompt alone, equal up to a first
+    difference at an f32 near-tie (the two logits within LOGIT_TOL of
+    the largest)."""
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.serve import synthetic_workload
+    eng, cfg = cell["engine"], cell["cfg"]
+
+    def workload():
+        return synthetic_workload(16, cfg.vocab_size, max_new=32,
+                                  min_len=256, max_len=1024, seed=7)
+
+    def run():
+        return eng.serve(workload(), num_slots=4, chunk=8, seed=0)
+
+    g0 = eng.num_graphs
+    for c in counters.values():
+        c.reset()
+    w0 = fd.window_launches.n
+    a = run()
+    launches = {n: c.n for n, c in counters.items()}
+    window = fd.window_launches.n - w0
+    b, busy_ms, _h2d, n_dev, wall = device_busy(run)
+    idle = 1 - busy_ms / 1e3 / b.total_s
+    if any(not np.array_equal(x.tokens, y.tokens)
+           or not np.array_equal(x.logprobs, y.logprobs)
+           for x, y in zip(a.results, b.results)):
+        fail("gemma3-1b serve: two runs of one workload differ")
+    if eng.num_graphs - g0 != 1:
+        fail(f"gemma3-1b serve captured {eng.num_graphs - g0} graphs, "
+             "expected 1")
+    if min(launches["quant_matmul"], launches["flash_decode_attention"],
+           window) <= 0:
+        fail(f"gemma3-1b serve: a kernel was never launched: {launches}, "
+             f"with a window {window}")
+    parted = {}
+    for req, r in zip(workload(), a.results):
+        g = eng.generate(np.asarray(req.tokens)[None], max_new=32)
+        d = np.nonzero(g.tokens[0] != r.tokens)[0]
+        if d.size:
+            gap = logit_near_tie(eng, np.asarray(req.tokens), g.tokens[0],
+                                 r.tokens, int(d[0]))
+            if gap > LOGIT_TOL:
+                fail(f"gemma3-1b serve request {r.uid} (prompt "
+                     f"{req.prompt_len}): token {int(r.tokens[d[0]])} at "
+                     f"step {int(d[0])} against generate's "
+                     f"{int(g.tokens[0, d[0]])}, logits {gap:.3e} of the "
+                     f"largest apart (limit {LOGIT_TOL})")
+            parted[r.uid] = (int(d[0]), gap)
+    ttft, lat = a.ttft_percentiles(), a.latency_percentiles()
+    log(f"  gemma3-1b serve (16 requests, prompts "
+        f"{min(r.prompt_len for r in a.results)}..."
+        f"{max(r.prompt_len for r in a.results)}, 32 new, 4 slots, chunk 8):"
+        f" {a.generated_tokens} tokens in {a.total_s:.3f} s = "
+        f"{a.tokens_per_s:.2f} tok/s; decode {a.decode_s:.3f} s in "
+        f"{a.chunks} chunks = {a.generated_tokens / a.decode_s:.2f} tok/s "
+        f"(graph capture {a.capture_s:.3f} s of it); prefill "
+        f"{a.prefill_s:.3f} s ({a.prefill_tokens} tokens, each prompt at "
+        f"its exact length); TTFT p50/p95 {ttft[50.0] * 1e3:.1f}/"
+        f"{ttft[95.0] * 1e3:.1f} ms; latency p50/p95 {lat[50.0] * 1e3:.1f}/"
+        f"{lat[95.0] * 1e3:.1f} ms; KV cache "
+        f"{a.cache_hbm_bytes / 2**20:.1f} MiB")
+    log(f"  gemma3-1b serve: two runs identical; card busy "
+        f"{busy_ms / 1e3:.3f} s of the profiled run's {b.total_s:.3f} s "
+        f"(idle share {idle:.3f}; {n_dev} device ops, {wall:.1f} s with the "
+        f"profiler); wrapper launches {launches}, {window} of flash-decode's"
+        f" with a window; against generate one request at a time: "
+        + (f"requests part at f32 near-ties {parted}" if parted
+           else "every request's tokens identical"))
+    return {"launches": launches, "eager_launches": {}, "window": window}
+
+
+def flash_window_timing(dev, gen, flush, B, H, KVH, hd, S, kind) -> dict:
+    """Flash-decode's window mode over a local layer's wrapped ring (S =
+    window slots, all valid, positions out of order) beside its plain
+    version, its byte bound and SDPA with the window in its mask."""
+    from repro_torch.kernels import decode_attention as fd
+    args = flash_inputs(gen, dev, B, H, KVH, hd, S, S, kind, ring=True)
+    cl = fd.launch_geometry(B * KVH, S, fd.slots_per_warp(
+        hd, args[1].element_size()), fd.cluster_capacity(
+        dev, fd._KV_KIND[args[1].dtype], hd, H // KVH))
+    return flash_timed(args, S, kind, flush,
+                       f"flash_decode window B={B} H={H} KVH={KVH} "
+                       f"(G={H // KVH}) hd={hd} ring S={S} = window, {kind},"
+                       f" cluster {cl}")
+
+
+def qmm_stack_timing(dev, gen, flush, st, M: int, label: str) -> dict:
+    """Kernel 3 on a compressed E = 1 stack at M tokens, every token
+    compensated, beside its plain version and its bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qm
+    qt = ops.stack_member(st, 0)
+    K, N = qt.shape
+    x = torch.randn((M, K), generator=gen, device=dev)
+    args = (x, qt.planes, qt.scale, qt.zero, st.u[0], st.u_scale[0],
+            st.v[0], st.v_scale[0], torch.ones((M,), device=dev), None)
+    kw = dict(bits=qt.bits, group_size=qt.group_size)
+    kt = time_ms(lambda: qm.quant_matmul(*args, require_kernel=True, **kw),
+                 20, flush)
+    pt = time_ms(lambda: qm.quant_matmul_plain(*args, **kw), 3, flush)
+    allclose_report(f"quant_matmul {label}", qm.quant_matmul(
+        *args, require_kernel=True, **kw), qm.quant_matmul_plain(
+        *args, **kw), **FUSED_TOL)
+    nb, ops_n = qmm_bytes_ops(M, K, N, qt.planes, st.pad_rank)
+    bms, by = bound(nb, ops_n)
+    geo = "tensor cores"
+    if qm.qmm_path(M) == "splitk":
+        cs, kch = qm.decode_splits(dev, M, K, N, st.pad_rank, qt.bits)
+        geo = (f"{-(-M // qm.token_tile(M)) * -(-N // qm.QMM_BN)} clusters "
+               f"of {cs} blocks x {kch} pack blocks")
+    log(f"  quant_matmul {label} M={M} K={K} N={N} bits={qt.bits} "
+        f"R={st.pad_rank} ({geo}): kernel {_fmt(kt)}; plain {_fmt(pt)}; "
+        f"bound {bms:.4f} ms ({by}; {nb / 1e6:.2f} MB)")
+    return dict(ms=_ms(f"quant_matmul {label}", kt),
+                plain_ms=_ms(f"quant_matmul {label} plain", pt),
+                bound_ms=bms, bound_by=by)
+
+
+def window_phase(dev, counters):
+    """Phase 13's three cells, Gemma3-1B's serve cell and the timings:
+    flash-decode's window mode at both Gemma3 ring shapes and its G 7
+    (Qwen2-7B) at that cell's decode shape, kernel 3 at Gemma3-27B's w1
+    and w2 at M 4.  Returns (runs, served, {kernel: timing keys},
+    {path: flash-decode launches with a window})."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    keys = ("launches", "eager_launches", "compress_s", "prefill_ms",
+            "decode_tok_s", "eager_tok_s", "profile")
+    runs, served, window = {}, {}, {}
+    flash, qmm = {}, {}
+    for name in WINDOW_CELLS:
+        t0 = time.perf_counter()
+        log(f"  -- {name}")
+        cell = window_cell(dev, name)
+        runs[name] = {k: cell[k] for k in keys}
+        window[name] = cell["window"]["graph"]
+        window[f"{name}_eager"] = cell["window"]["eager"]
+        if name == "gemma3_1b":
+            sv = window_serve(dev, cell, counters)
+            served["gemma3_1b_serve"] = sv
+            window["gemma3_1b_serve"] = sv.pop("window")
+            timed = flash_window_timing(dev, gen, flush, 4, 4, 1, 256, 512,
+                                        "f32")
+        elif name == "gemma3_27b":
+            timed = flash_window_timing(dev, gen, flush, 4, 32, 16, 128,
+                                        1024, "bf16")
+            for proj in ("w1", "w2"):
+                qmm.update({f"gemma3_27b_{proj}_{k}": v for k, v in
+                            qmm_stack_timing(dev, gen, flush,
+                                             cell["stacks"][proj], 4,
+                                             f"gemma3-27b {proj}").items()
+                            if k != "bound_by"})
+        else:
+            timed = flash_slice_timing(dev, gen, flush, cell, "bf16")
+        flash.update({f"{name}_{'window_' if name != 'qwen2_7b' else ''}"
+                      f"{k}": v for k, v in timed.items() if k != "bound_by"})
+        del cell
+        torch.cuda.empty_cache()
+        log(f"  {name} took {time.perf_counter() - t0:.1f} s")
+    return runs, served, {"flash_decode_attention": flash,
+                          "quant_matmul": qmm}, window
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the entry points (compress CLI -> artifact -> serve CLI)
 # ---------------------------------------------------------------------------
 
@@ -3794,6 +4184,17 @@ def main() -> int:
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
     del ds
     torch.cuda.empty_cache()
+
+    log("== phase 13: sliding-window models (Gemma3-1B, Gemma3-27B) and "
+        "QKV biases (Qwen2-7B), before phase 9")
+    t13 = time.perf_counter()
+    wruns, wserved, wtable, wwindow = window_phase(dev, counters)
+    runs.update(wruns)
+    served.update(wserved)
+    for name, extra in wtable.items():
+        table[name].update(extra)
+    table["flash_decode_attention"]["launches_window_by_path"] = wwindow
+    log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
     log("== phase 9: the entry points: compress CLI -> artifact -> serve "
         "CLI (Qwen3-MoE-30B-A3B)")

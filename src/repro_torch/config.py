@@ -73,6 +73,7 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ("global",)
     window_size: int = 4096
     rope_theta: float = 10_000.0
+    rope_local_theta: float = 0.0      # local layers' theta (0: rope_theta)
     act: str = "silu"
     norm_eps: float = 1e-6
     qkv_bias: bool = False

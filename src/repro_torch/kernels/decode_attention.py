@@ -38,6 +38,8 @@ from .build import LaunchCounter, check, load
 launches = LaunchCounter()
 # the launches of ``launches`` that ran the multi-query mode
 multi_launches = LaunchCounter()
+# the launches of ``launches`` with a window (a local layer's ring)
+window_launches = LaunchCounter()
 
 NEG = -2.0 ** 30
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -311,4 +313,6 @@ def _launch(q, k, v, kv_pos, cur_pos, k_scale, v_scale, window, *, block,
     launches.n += 1
     if multi:
         multi_launches.n += 1
+    if window:
+        window_launches.n += 1
     return out

@@ -9,7 +9,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..config import ModelConfig
-from .layers import rms_norm, softcap
+from .layers import in_dtype, rms_norm, softcap
 from .transformer import ExecContext, apply_stack
 
 
@@ -29,7 +29,9 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
     x = params["embed"]["tok"][tokens.long()]
     if cfg.scale_embed:
-        x = x * math.sqrt(cfg.d_model)
+        # JAX multiplies by the weak-typed sqrt(d): rounded to x's dtype
+        # first (in bf16 sqrt(1152) is 34.0, not 33.94)
+        x = x * in_dtype(math.sqrt(cfg.d_model), x.dtype)
     return x
 
 

@@ -1,11 +1,13 @@
 """Layer stack: parameter init, offline compression, caches and the
-per-layer forward (port of the global-attention subset of
+per-layer forward (port of the attention-layer subset of
 ``repro/models/transformer.py``).
 
 Parameters are plain dicts of tensors with one dict per layer under
 ``params["layers"]`` (the JAX package's scanned segments become a Python
-loop).  Only the layers the serving slices run are ported: a
-global-attention mixer followed by an MoE FFN or a dense FFN.
+loop).  Only the layers the serving slices run are ported: a global or
+local (sliding-window) attention mixer, with QKV biases and Gemma-style
+post-norms where the config asks for them, followed by an MoE FFN or a
+dense FFN.  A local layer's KV cache is a ring of ``window_size`` slots.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from .moe import RoutingInfo, moe_apply
 
 
 class LayerSpec(NamedTuple):
-    mixer: str          # global (the only mixer of this slice)
+    mixer: str          # global | local (sliding window)
     ffn: str            # moe | dense
 
 
@@ -50,20 +52,23 @@ class ExecContext:
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     specs = []
-    if cfg.qkv_bias or cfg.post_attn_norm:
-        raise NotImplementedError(
-            f"{cfg.name}: qkv bias and post-attention norms are not ported")
     for i in range(cfg.num_layers):
         mixer = cfg.layer_kind(i)
         moe = cfg.moe is not None and cfg.is_moe_layer(i) and not (
             i == 0 and cfg.first_layer_dense)
-        if mixer != "global":
+        if mixer not in ("global", "local"):
             raise NotImplementedError(
                 f"layer {i} of {cfg.name} is ({mixer}, "
-                f"{'moe' if moe else 'dense'}); the port runs global "
-                "attention layers only")
+                f"{'moe' if moe else 'dense'}); the port runs global and "
+                "local attention layers only (ROADMAP A12)")
         specs.append(LayerSpec(mixer, "moe" if moe else "dense"))
     return specs
+
+
+def has_local(cfg: ModelConfig) -> bool:
+    """Whether the plan has a sliding-window layer (whose ring cache can
+    neither invalidate prompt padding nor roll back a rejected draft)."""
+    return any(s.mixer == "local" for s in layer_specs(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -77,12 +82,22 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
     def di(shape, fan_in, dt=dtype):
         return dense_init(shape, fan_in, gen, device, dt)
 
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     p = {
-        "pre_norm": torch.zeros((d,), dtype=dtype, device=device),
+        "pre_norm": zeros((d,)),
         "attn": {"wq": di((d, h, hd), d), "wk": di((d, kv, hd), d),
                  "wv": di((d, kv, hd), d), "wo": di((h, hd, d), h * hd)},
-        "ffn_norm": torch.zeros((d,), dtype=dtype, device=device),
+        "ffn_norm": zeros((d,)),
     }
+    if cfg.qkv_bias:
+        # zeros, as the JAX package initialises them
+        p["attn"].update(bq=zeros((h, hd)), bk=zeros((kv, hd)),
+                         bv=zeros((kv, hd)))
+    if cfg.post_attn_norm:
+        p["post_norm"] = zeros((d,))
+        p["post_ffn_norm"] = zeros((d,))
     if spec.ffn == "moe":
         fe, ne = cfg.moe.d_expert, cfg.moe.num_experts
         p["moe"] = {"router": di((d, ne), d, torch.float32),
@@ -225,10 +240,14 @@ def compress_dense_params(params, cfg: ModelConfig, qcfg=None):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> Dict:
-    return {"layers": [init_attn_cache(batch, max_len, cfg.num_kv_heads,
-                                       cfg.head_dim, dtype,
-                                       kv_bits=cfg.kv_bits, device=device)
-                       for _ in layer_specs(cfg)],
+    """Contiguous caches of ``max_len`` slots per row; a local layer's is a
+    ring of ``min(window_size, max_len)`` slots (slot = position mod its
+    length)."""
+    return {"layers": [init_attn_cache(
+                batch, min(cfg.window_size, max_len)
+                if spec.mixer == "local" else max_len, cfg.num_kv_heads,
+                cfg.head_dim, dtype, kv_bits=cfg.kv_bits, device=device)
+                       for spec in layer_specs(cfg)],
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
@@ -238,9 +257,14 @@ def init_paged_caches(cfg: ModelConfig, num_slots: int, num_pages: int,
     """Slotted serve caches with paged attention layers: each layer owns
     a (num_pages, page_size, ...) pool and a (num_slots, max_blocks)
     block table, all layers sharing one page-id space, so the host
-    allocator hands out one page list per request.  (Every layer the
-    port runs is global attention; the JAX package keeps local rings and
-    recurrent states contiguous.)"""
+    allocator hands out one page list per request.  A plan with a local
+    layer raises: the JAX package keeps its rings contiguous beside the
+    paged layers, a mixed plan the port does not have yet (ROADMAP
+    A12)."""
+    if has_local(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: a paged cache for a plan with local (ring) layers "
+            "is not ported yet: ROADMAP A12")
     return {"layers": [init_paged_attn_cache(
                 num_slots, num_pages, page_size, max_blocks,
                 cfg.num_kv_heads, cfg.head_dim, dtype, kv_bits=cfg.kv_bits,
@@ -380,12 +404,18 @@ def cache_rollback(cfg: ModelConfig, caches: Dict, new_len: torch.Tensor
 # layer application
 # ---------------------------------------------------------------------------
 
-def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, positions, cache):
+def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, mixer: str,
+                positions, cache):
+    window = cfg.window_size if mixer == "local" else None
     q = torch.einsum("bsd,dhk->bshk", x, ap["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, ap["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, ap["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if "bq" in ap:
+        q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
+    theta = (cfg.rope_local_theta if mixer == "local"
+             and cfg.rope_local_theta else cfg.rope_theta)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
     if ctx.mode == "step" and is_paged(cache):
         # paged: write through the block table, then read the pool through
         # it (block-table contents are data, so one captured decode graph
@@ -397,9 +427,11 @@ def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, positions, cache):
         upd = update_attn_cache(cache, k, v, positions)
         ks, vs = dequant_scales(upd)
         out = decode_attention(q, upd["k"], upd["v"], upd["pos"], positions,
-                               k_scale=ks, v_scale=vs, impl=ctx.kernel_impl)
+                               window=window, k_scale=ks, v_scale=vs,
+                               impl=ctx.kernel_impl)
     else:
-        out = attention(q, k, v, positions, positions, causal=True)
+        out = attention(q, k, v, positions, positions, causal=True,
+                        window=window)
         if ctx.mode == "prefill" and cache is not None:
             prefill_attn_cache(cache, k, v, positions)
     return torch.einsum("bshk,hkd->bsd", out, ap["wo"])
@@ -412,7 +444,10 @@ def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
     MoE input is the (T, d) f32 normed FFN input when
     ``ctx.collect_moe_inputs`` is set, else None."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    x = x + _attn_layer(h, p["attn"], cfg, ctx, positions, cache)
+    y = _attn_layer(h, p["attn"], cfg, ctx, spec.mixer, positions, cache)
+    if cfg.post_attn_norm:
+        y = rms_norm(y, p["post_norm"], cfg.norm_eps)
+    x = x + y
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if spec.ffn == "dense":
         fp = p["ffn"]
@@ -421,7 +456,7 @@ def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
                                     impl=ctx.kernel_impl)
         else:
             y = ffn_apply(h, fp, cfg.act, cfg.gated_ffn)
-        return x + y, {}, None, None
+        return x + _post_ffn(y, p, cfg), {}, None, None
     mp = p["moe"]
     b, s, d = h.shape
     y2, aux, info = moe_apply(
@@ -434,7 +469,14 @@ def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
     if "shared" in mp:
         # shared experts: every token, uncompressed, on the same input
         y = y + ffn_apply(h, mp["shared"], cfg.act, True)
-    return x + y, aux, info, moe_in
+    return x + _post_ffn(y, p, cfg), aux, info, moe_in
+
+
+def _post_ffn(y, p, cfg: ModelConfig):
+    """Gemma-style norm of the FFN output before the residual add."""
+    if cfg.post_attn_norm:
+        return rms_norm(y, p["post_ffn_norm"], cfg.norm_eps)
+    return y
 
 
 def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,

@@ -6,7 +6,9 @@ mesh).
 
 Prompts right-pad to a power-of-two length and the padded cache slots
 are invalidated afterwards (``mask_cache_padding``), so padded decode
-matches unpadded decode; cache lengths round up to powers of two.  Each
+matches unpadded decode; a plan with local (sliding-window) layers, whose
+ring caches cannot invalidate padding, prefills each prompt at its exact
+length instead.  Cache lengths round up to powers of two.  Each
 (batch, cache length) bucket keeps one resident cache set, reset in place
 before every prefill into it.
 
@@ -77,8 +79,9 @@ from ..models.kvcache import is_paged
 from ..models.transformer import (ExecContext, cache_claim_slot,
                                   cache_claim_slot_paged, cache_rollback,
                                   cache_reset_slot_paged, cache_seed_prefix,
-                                  init_caches, init_paged_caches,
-                                  layer_specs, mask_cache_padding,
+                                  has_local, init_caches,
+                                  init_paged_caches, layer_specs,
+                                  mask_cache_padding,
                                   reset_caches)
 from .controller import BandwidthController, ControllerPlan
 from .paging import PagePool, prefix_page_hashes
@@ -108,7 +111,11 @@ def _graph_key(caches, plan) -> Tuple:
         n_pages, ps = c["k"].shape[:2]
         return (c["block"].shape[0], c["block"].shape[1] * ps,
                 plan is not None, n_pages, ps)
-    return (c["k"].shape[0], c["k"].shape[1], plan is not None)
+    # the longest layer's length: a local layer's ring is capped at the
+    # window, so rings alone do not tell two buckets apart
+    return (c["k"].shape[0], max(lc["k"].shape[1]
+                                 for lc in caches["layers"]),
+            plan is not None)
 
 
 @dataclasses.dataclass
@@ -329,6 +336,11 @@ class ServeEngine:
         # a model without MoE layers routes nothing: no trace
         self.collect_router_trace = collect_router_trace and any(
             s.ffn == "moe" for s in layer_specs(cfg))
+        # right-padded prefill is exact only when every layer attends over
+        # a full-length position-masked cache: a local layer's ring cannot
+        # invalidate padding afterwards, so such plans prefill each prompt
+        # at its exact length
+        self._pad_prompts = not has_local(cfg)
         self._prefill_ctx = ExecContext(mode="prefill", quantized=quantized,
                                         exact_capacity=True,
                                         kernel_impl=kernel_impl)
@@ -373,8 +385,11 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     def _pad_prompt(self, prompt_tokens: np.ndarray) -> np.ndarray:
-        """Right-pad prompts to their length bucket (id 0)."""
+        """Right-pad prompts to their length bucket (id 0), on a plan
+        without local layers."""
         b, plen = prompt_tokens.shape
+        if not self._pad_prompts:
+            return prompt_tokens
         lp = bucket_len(plen, PROMPT_BUCKET_MIN)
         if lp == plen:
             return prompt_tokens
@@ -1116,7 +1131,11 @@ class ServeEngine:
         ``LookaheadPrefetcher`` (exact in-round routing, where the plain
         loop has the layer-ahead guess); ``ServeStats.spec_report``
         carries the acceptance rate, lookahead accuracy and the
-        draft-overhead bytes."""
+        draft-overhead bytes.
+
+        On a plan with local (ring) layers ``spec_k`` raises
+        ``ValueError``, as the JAX engine does, and ``page_size``
+        ``NotImplementedError`` (ROADMAP A12)."""
         from ..offload.prefetch import LookaheadPrefetcher
         from ..offload.store import (offload_report, replay_decode_trace,
                                      replay_spec_round, snapshot_offload)
@@ -1131,6 +1150,11 @@ class ServeEngine:
         spec_on = spec_k > 0
         spec_pf = None
         if spec_on:
+            if not self._pad_prompts:
+                raise ValueError("speculative decoding needs an all-'global' "
+                                 "decoder-only attention plan: recurrent and "
+                                 "local-ring states cannot roll back a "
+                                 "rejected draft suffix")
             if drafter is None:
                 drafter = self.scfg.spec.drafter
             if isinstance(drafter, str):
@@ -1158,7 +1182,8 @@ class ServeEngine:
             return ServeStats([], num_slots, chunk, 0.0, 0.0, 0.0, 0, 0)
 
         def padded_plen(r: Request) -> int:
-            return bucket_len(r.prompt_len, PROMPT_BUCKET_MIN)
+            return (bucket_len(r.prompt_len, PROMPT_BUCKET_MIN)
+                    if self._pad_prompts else r.prompt_len)
 
         pool = None
         slot_pages: Dict[int, List[int]] = {}
@@ -1186,8 +1211,9 @@ class ServeEngine:
             # rejected positions past a slot's final token, and the ring
             # must absorb them without wrapping onto live entries (the
             # rollback can only restore what the write did not destroy)
-            cache_len = bucket_len(max(padded_plen(r) + r.max_new
-                                       for r in reqs) + 1
+            cache_len = bucket_len(max(bucket_len(r.prompt_len,
+                                                  PROMPT_BUCKET_MIN)
+                                       + r.max_new for r in reqs) + 1
                                    + (spec_k if spec_on else 0))
             caches = self._bucket_caches(num_slots, cache_len)
         cache_hbm = sum(t.numel() * t.element_size()

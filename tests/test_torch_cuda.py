@@ -462,8 +462,11 @@ def _flash_args(dev, B, H, KVH, hd, S, kind, filled, seed):
 # B * KVH = 160 rows (cluster size 1); S 1003 (no multiple of a tile or
 # of the cluster); S 8192; G 1 and G 8; hd 256 and hd 32 (the reduced
 # configs' width); Qwen3-MoE-30B-A3B's G 8 (32 / 4 heads) at serve's
-# (4, 512) and (4, 1024) buckets
-_FLASH_SHAPES = {"qwen3_s512": (4, 32, 4, 128, 512),
+# (4, 512) and (4, 1024) buckets; Qwen2-7B's G 7 (28 / 4 heads, run by
+# the G 8 instantiation) and Gemma3-1B's (4 / 1 heads, hd 256) ring
+_FLASH_SHAPES = {"qwen2_g7": (4, 28, 4, 128, 512),
+                 "gemma3_1b": (4, 4, 1, 256, 512),
+                 "qwen3_s512": (4, 32, 4, 128, 512),
                  "qwen3_s1024": (4, 32, 4, 128, 1024),
                  "b3g6": (3, 12, 2, 64, 200), "b1": (1, 32, 8, 128, 512),
                  "rows160": (20, 32, 8, 128, 96),
@@ -488,6 +491,37 @@ def test_flash_decode_kernel_matches_plain(dev, kind, window, filled, shape):
     got = fd.flash_decode_attention(*args, window=window,
                                     require_kernel=True)
     want = fd.flash_decode_attention_plain(*args, window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+# Gemma3's local layers at decode (B, H, KVH, hd, window): a ring of
+# window slots, full and wrapped
+_GEMMA3_RINGS = {"gemma3_1b": (4, 4, 1, 256, 512),
+                 "gemma3_27b": (4, 32, 16, 128, 1024)}
+
+
+@pytest.mark.parametrize("shape", list(_GEMMA3_RINGS))
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_flash_decode_window_over_full_ring(dev, kind, shape):
+    """A local layer's decode read: a full ring of S = window slots, its
+    positions wrapped out of order, ``window == S`` (every slot valid),
+    against the plain version; and the same ring one step later, the
+    oldest slot rewritten with the new position (the ring's next write),
+    so the slot it held falls out of the window."""
+    B, H, KVH, hd, S = _GEMMA3_RINGS[shape]
+    args = _flash_args(dev, B, H, KVH, hd, S, kind, "ring", 5)
+    got = fd.flash_decode_attention(*args, window=S, require_kernel=True)
+    want = fd.flash_decode_attention_plain(*args, S)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    q, k, v, pos, cur, ks, vs = args
+    nxt = cur + 1
+    pos = pos.clone()
+    pos[:, int(nxt[0]) % S] = nxt[0]
+    got = fd.flash_decode_attention(q, k, v, pos, nxt, ks, vs, window=S,
+                                    require_kernel=True)
+    want = fd.flash_decode_attention_plain(q, k, v, pos, nxt, ks, vs, S)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
@@ -883,6 +917,8 @@ def test_quant_matmul_kernel_wide_groups(dev, m, group):
 
 # Llama-3.2-3B's dense FFN projections (K, N): w1 / w3 and w2
 _LLAMA = {"w1": (3072, 8192), "w2": (8192, 3072)}
+# Gemma3-1B's
+_GEMMA3_1B = {"w1": (1152, 6912), "w2": (6912, 1152)}
 
 
 @pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 16, 33, 127])
@@ -891,7 +927,18 @@ def test_quant_matmul_decode_llama_shapes(dev, proj, m):
     """The decode kernel (one launch, K split over a cluster) at
     Llama-3.2-3B's projections, every token compensated, at every token
     tile width and ragged M below MMA_MIN_M."""
-    k, n = _LLAMA[proj]
+    _decode_shape_case(dev, *_LLAMA[proj], m)
+
+
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("proj", ["w1", "w2"])
+def test_quant_matmul_decode_gemma3_shapes(dev, proj, m):
+    """The decode kernel at Gemma3-1B's projections (K 1152 = 18 pack
+    blocks, K 6912 = 108), as the decode step runs them."""
+    _decode_shape_case(dev, *_GEMMA3_1B[proj], m)
+
+
+def _decode_shape_case(dev, k, n, m):
     assert qm.qmm_path(m) == "splitk"
     args = _qmm_args(dev, m, k, n, 32, 2, m + k, mask_mode="ones")
     before = qm.qmm_launches.n
@@ -1093,6 +1140,53 @@ def test_graph_generate_matches_eager(dev, kind):
     assert eager.num_graphs == 0 and b.capture_s == 0
     assert (a.router_trace is None) == (kind == "dense")
     _assert_same_generation(a, b)
+
+
+def test_window_engine_graph_matches_eager(dev):
+    """Reduced Gemma3-1B (5 local layers with rings of 16 and a global
+    one, E = 1 stacks): ``generate`` with 21-token prompts (the rings wrap
+    at prefill) through the decode graph gives the eager loop's tokens and
+    log-probs within 1e-5, flash-decode runs with a window on every local
+    layer of every eager step, and a second bucket (cache 128 against 64,
+    the same rings) captures its own graph.  ``serve`` on prompts of 11
+    and 27 tokens (both sides of the window) gives the eager serve's
+    tokens."""
+    import dataclasses
+    from repro_torch.models.transformer import (compress_dense_params,
+                                                init_params)
+    from repro_torch.registry import get_config
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import Request
+    cfg = get_config("gemma3-1b", reduced=True)
+    params = init_params(cfg, seed=0, dtype=torch.float32)
+    qp, cfg_q = compress_dense_params(
+        params, cfg, dataclasses.replace(cfg.quant, rank_budget=16))
+    graph = ServeEngine(cfg_q, qp, quantized=True)
+    eager = ServeEngine(cfg_q, qp, quantized=True, decode_graph=False)
+    prompts = _prompts(cfg, 3, 21)
+    a = graph.generate(prompts, 20)
+    before = fd.window_launches.n
+    b = eager.generate(prompts, 20)
+    # 5 local layers, in the prefill (none: plain attention) and 20 steps
+    assert fd.window_launches.n - before == 5 * 20
+    _assert_same_generation(a, b)
+    assert graph.num_graphs == 1
+    long = _prompts(cfg, 3, 50, seed=1)
+    _assert_same_generation(graph.generate(long, 20),
+                            eager.generate(long, 20))
+    assert graph.num_graphs == 2
+    rng = np.random.default_rng(2)
+    reqs = [rng.integers(2, cfg.vocab_size, (n,)).astype(np.int32)
+            for n in (11, 27, 27, 11, 27, 11)]
+
+    def serve(eng):
+        return eng.serve([Request(uid=i, tokens=t, max_new=10)
+                          for i, t in enumerate(reqs)], num_slots=2,
+                         chunk=4, seed=0)
+    for x, y in zip(serve(graph).results, serve(eager).results):
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+        np.testing.assert_allclose(x.logprobs, y.logprobs, rtol=1e-5,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("kind", ["moe", "dense"])

@@ -77,8 +77,8 @@ def test_llama_layers_are_dense_global():
     assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings) == \
         (3072, 24, 8, 128, 8192, 128_256, True)
-    with pytest.raises(NotImplementedError, match="qkv bias"):
-        layer_specs(dataclasses.replace(cfg, qkv_bias=True))
+    with pytest.raises(NotImplementedError, match="recurrent"):
+        layer_specs(dataclasses.replace(cfg, block_pattern=("recurrent",)))
 
 
 def test_bridge_carries_dense_ffn_and_e1_stacks():

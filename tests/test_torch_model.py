@@ -45,7 +45,9 @@ def _models():
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama3.2-3b",
-                                  "deepseek-moe-16b", "qwen3-moe-30b-a3b"])
+                                  "deepseek-moe-16b", "qwen3-moe-30b-a3b",
+                                  "gemma3-1b", "gemma3-27b", "qwen2-7b",
+                                  "mixtral-8x22b", "llama4-scout-17b-a16e"])
 def test_config_copy_matches_jax(arch):
     for reduced in (True, False):
         _check_config_copy(j_get_config(arch, reduced=reduced),
