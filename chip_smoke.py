@@ -19,7 +19,10 @@ Phases:
                 and Qwen3's shapes; its multi-query mode, Q 2, 4 and 8
                 query positions per row, contiguous and paged, f32, bf16
                 and int8, S 512 and 32768, against Q single-query calls
-                bit for bit)
+                bit for bit; flash-decode at RecurrentGemma-9B's G 16 (hd
+                256, S 2048, with and without its window of 2048, f32,
+                bf16 and int8) and at G 9, kernel 3 at its projections
+                4096 -> 12288 -> 4096 at M 1, 4 and 512)
   3. slice      Mixtral-8x7B at its published widths, depth cut to 2
                 layers, random f32 weights from a seeded generator:
                 compress on the card, ``ServeEngine.generate`` through
@@ -43,7 +46,10 @@ Phases:
                 its multi-query mode at Q 4 (Mixtral's and DeepSeek's
                 shapes, S 512 and 32768, contiguous and paged) against 4
                 single-query calls, its bound, the plain version and SDPA
-                with an explicit mask
+                with an explicit mask; its window mode at
+                RecurrentGemma-9B's G 16 ring (B 4, hd 256, S 2048 =
+                window, bf16 and f32) beside its bound, the plain version
+                and SDPA with the window in an explicit mask
   5. dense      Llama-3.2-3B at its published config (28 layers, dense
                 FFNs compressed to E = 1 stacks): the same as phase 3
                 (graph against eager, the profiles, teacher-forced),
@@ -142,6 +148,30 @@ Phases:
                 lookahead accuracy and MB, draft-overhead MB, wire
                 MB/token, decode tok/s over rounds, TTFT, drafter and
                 verify ms per round)
+ 13. window     sliding-window models, run after phase 12: Gemma3-1B (26
+                layers, f32), Gemma3-27B (bf16, GEMMA3_27B_LAYERS) and
+                Qwen2-7B (bf16, QWEN2_LAYERS, seeded QKV biases) through
+                ``serve_slice`` and ``teacher_forced``, the eager loop's
+                launches counted exactly; Gemma3-1B's serve of 16
+                requests; flash-decode's window mode timed at both Gemma3
+                rings, kernel 3 at Gemma3-27B's projections
+ 14. stateful   the stateful mixers, run after phase 13 (before phase 9):
+                Gemma3-1B's 16 requests served again at page 16 (its
+                global layers paged, the rings slot-indexed beside the
+                pools) against phase 13's contiguous run; RecurrentGemma-9B
+                at published widths, RECURRENTGEMMA_LAYERS deep (4
+                recurrent, 2 local layers), bf16, 4 prompts of 2040 tokens
+                and 32 new (decode wraps the 2048-slot rings) through
+                ``serve_slice`` and ``teacher_forced`` (LOGIT_TOL_BF16),
+                the eager loop's launches counted exactly, the RG-LRU gate
+                matrices' share of the graph's step; its serve of 8
+                requests contiguous (each request against ``generate`` of
+                its prompt alone) and at page 16 (equal); kernel 3 at
+                its projections timed (M 4);
+                xLSTM-125M (12 layers, f32, unquantized: no TPU kernel on
+                its path), 4 prompts of 512 tokens, graph against eager,
+                prefill-then-decode against one forward pass (LOGIT_TOL);
+                both mixed plans refuse prefix reuse and speculation
 
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -500,7 +530,8 @@ def qwen3_fused_cases(dev, gen) -> float:
 # E = 1 stacks: w1 / w3, then w2
 ZOO_QMM = {"gemma3_1b": ((1152, 6912), (6912, 1152)),
            "gemma3_27b": ((5376, 21504), (21504, 5376)),
-           "qwen2_7b": ((3584, 18944), (18944, 3584))}
+           "qwen2_7b": ((3584, 18944), (18944, 3584)),
+           "recurrentgemma_9b": ((4096, 12288), (12288, 4096))}
 # the MoE configs registered without a served cell: (E, top-k, top-n,
 # d_model, d_expert)
 ZOO_FUSED = {"llama4_scout": (16, 1, 1, 5120, 8192),
@@ -509,8 +540,9 @@ ZOO_FUSED = {"llama4_scout": (16, 1, 1, 5120, 8192),
 
 def zoo_kernel_cases(dev, gen) -> tuple:
     """Kernel 3 at each new dense projection (Gemma3-1B, Gemma3-27B,
-    Qwen2-7B; 2 bits, rank 32, every token compensated) at M 1 and 4
-    (the decode kernel) and 512 (the tensor cores); kernel 1 at
+    Qwen2-7B, RecurrentGemma-9B; 2 bits, rank 32, every token
+    compensated) at M 1 and 4 (the decode kernel) and 512 (the tensor
+    cores); kernel 1 at
     Llama-4-Scout's (E 16, top-1) and Mixtral-8x22B's (E 8, top-2) expert
     grids, w1 and w2 at T 4 and 1024 of top-k dispatch, pad_rank 64, both
     main-kernel paths forced, against the plain version in f64.  Returns
@@ -711,6 +743,15 @@ def kernel_phase(dev):
     flash_cases += [(4, 4, 1, 256, 512, "ring", ("f32", "bf16"), (512,)),
                     (4, 32, 16, 128, 1024, "ring", ("bf16",), (1024,)),
                     (4, 28, 4, 128, 512, 288, ("bf16", "f32"), (None,))]
+    # RecurrentGemma-9B's local layers, G 16 (16 / 1 heads, hd 256: eight
+    # query-head groups of 2) at its window of 2048: the full wrapped ring
+    # (window = ring) and a cache of 2040 prompt tokens, with and without
+    # the window; and G 9 (four groups of 2 and one of 1)
+    flash_cases += [(4, 16, 1, 256, 2048, "ring", ("f32", "bf16", "int8"),
+                     (2048,)),
+                    (4, 16, 1, 256, 2048, 2040, ("f32", "bf16", "int8"),
+                     (None, 2048)),
+                    (2, 18, 2, 128, 1000, 700, ("f32", "int8"), (None, 300))]
     errs["flash_decode_attention"] = max(paged_kernel_cases(dev, gen),
                                          multi_query_cases(dev, gen))
     for B, H, KVH, hd, S, filled, kinds, windows in flash_cases:
@@ -719,8 +760,10 @@ def kernel_phase(dev):
             args = flash_inputs(gen, dev, B, H, KVH, hd, S,
                                 S if ring else filled, kind, ring)
             spw = fd.slots_per_warp(hd, args[1].element_size())
-            cl = fd.launch_geometry(B * KVH, S, spw, fd.cluster_capacity(
-                dev, fd._KV_KIND[args[1].dtype], hd, H // KVH))
+            cl = fd.launch_geometry(
+                B * KVH * fd.group_splits(H // KVH), S, spw,
+                fd.cluster_capacity(dev, fd._KV_KIND[args[1].dtype], hd,
+                                    H // KVH))
             for window in windows:
                 got = fd.flash_decode_attention(*args, window=window,
                                                 require_kernel=True)
@@ -1109,8 +1152,8 @@ def slice_phase(dev, dtype=torch.float32):
 
 def serve_slice(dev, cfg_q, qparams, prompts, NEW, counters) -> dict:
     """A slice's main path: ``ServeEngine.generate`` with the decode graph,
-    first a warm-up generate in the timed bucket (its 256-token prompts,
-    2 new tokens: cache 512, where the one capture happens), then the
+    first a warm-up generate of the timed run's prompts and new tokens
+    (so in the timed bucket; the one capture happens in it), then the
     timed one.  ``counters`` (name -> the wrappers' launch counters) are
     set to 0 before the warm-up and read after the timed run: a wrapper
     counts where Python launches its kernel, which is in prefill, in the
@@ -1125,11 +1168,11 @@ def serve_slice(dev, cfg_q, qparams, prompts, NEW, counters) -> dict:
                       device=dev)
     for c in counters.values():
         c.reset()
-    warm = eng.generate(prompts, max_new=2)
+    warm = eng.generate(prompts, max_new=NEW)
     log(f"  decode graph capture: {warm.capture_s:.3f} s (eager warm-up "
         f"step, then capture of one decode step, in the warm-up generate "
-        f"of the timed bucket; graphs {eng.num_graphs}: "
-        f"{sorted(eng.graphs)})")
+        f"of the timed bucket; graphs {eng.num_graphs}: resident caches "
+        f"{sorted(eng._caches)})")
     res = eng.generate(prompts, max_new=NEW, seed=0)
     launches = {n: c.n for n, c in counters.items()}
     if res.capture_s or eng.num_graphs != 1:
@@ -1160,8 +1203,8 @@ def serve_slice(dev, cfg_q, qparams, prompts, NEW, counters) -> dict:
              f"(limit {GRAPH_LP_TOL})")
     log(f"  graph vs eager: tokens and router trace identical, max "
         f"|dlogprob| {lp_diff:.3e} (limit {GRAPH_LP_TOL})")
-    pg = profile_decode(eng, prompts, res.decode_s / NEW)
-    pe = profile_decode(eager, prompts, eres.decode_s / NEW)
+    pg = profile_decode(eng, prompts, NEW, res.decode_s / NEW)
+    pe = profile_decode(eager, prompts, NEW, eres.decode_s / NEW)
     for name, r, p in (("graph", res, pg), ("eager", eres, pe)):
         log(f"  decode {name}: {r.decode_tokens_per_s:.2f} tok/s, host "
             f"{p['host_ms']:.3f} ms/step, device busy {p['busy_ms']:.3f} "
@@ -1859,6 +1902,14 @@ def timing_phase(dev, sl):
                                                               flush))
     table["flash_decode_attention"].update(flash_multi_timing(dev, gen,
                                                               flush))
+    # RecurrentGemma-9B's local layers: G 16 (MQA) over the full ring of
+    # its window, bf16 as phase 14 serves it, and f32
+    for kind in ("bf16", "f32"):
+        timed = flash_window_timing(dev, gen, flush, 4, 16, 1, 256, 2048,
+                                    kind)
+        table["flash_decode_attention"].update(
+            {f"recurrentgemma_9b_window_{kind}_{k}": v
+             for k, v in timed.items() if k != "bound_by"})
     return table
 
 
@@ -2429,9 +2480,7 @@ def serve_deepseek(dev, ds, counters) -> dict:
     log(f"  deepseek serve: two runs identical (tokens, traces, offload "
         f"report); card busy {busy_s:.3f} s of the profiled run's "
         f"{a2.total_s:.3f} s ({n_dev} device ops, {wall:.1f} s with the "
-        f"profiler); graphs {g0} -> {g1}: "
-        f"{sorted(k for k in eng.graphs if k[0] == 4)}; wrapper launches "
-        f"{launches}")
+        f"profiler); graphs {g0} -> {g1}; wrapper launches {launches}")
     if g1 - g0 != 1:
         fail(f"DeepSeek serve captured {g1 - g0} graphs, expected 1")
 
@@ -3498,6 +3547,28 @@ def logit_near_tie(eng, prompt, toks, other, step: int) -> float:
                  / lf.abs().max())
 
 
+def against_generate(name: str, eng, workload, served, max_new: int,
+                     tol: float) -> dict:
+    """Each request of a serve run against ``generate`` of its prompt
+    alone: its tokens equal up to a first difference at a near-tie (the
+    two logits within ``tol`` of the largest).  Returns {uid: (first
+    differing step, gap)} of the requests that part."""
+    parted = {}
+    for req, r in zip(workload(), served.results):
+        g = eng.generate(np.asarray(req.tokens)[None], max_new=max_new)
+        d = np.nonzero(g.tokens[0] != r.tokens)[0]
+        if d.size:
+            gap = logit_near_tie(eng, np.asarray(req.tokens), g.tokens[0],
+                                 r.tokens, int(d[0]))
+            if gap > tol:
+                fail(f"{name} request {r.uid} (prompt {req.prompt_len}): "
+                     f"token {int(r.tokens[d[0]])} at step {int(d[0])} "
+                     f"against generate's {int(g.tokens[0, d[0]])}, logits "
+                     f"{gap:.3e} of the largest apart (limit {tol})")
+            parted[r.uid] = (int(d[0]), gap)
+    return parted
+
+
 def window_serve(dev, cell, counters) -> dict:
     """Gemma3-1B's engine (f32): 16 requests with prompts of 256..1024
     tokens (on both sides of the window of 512; each prefilled at its
@@ -3537,20 +3608,8 @@ def window_serve(dev, cell, counters) -> dict:
            window) <= 0:
         fail(f"gemma3-1b serve: a kernel was never launched: {launches}, "
              f"with a window {window}")
-    parted = {}
-    for req, r in zip(workload(), a.results):
-        g = eng.generate(np.asarray(req.tokens)[None], max_new=32)
-        d = np.nonzero(g.tokens[0] != r.tokens)[0]
-        if d.size:
-            gap = logit_near_tie(eng, np.asarray(req.tokens), g.tokens[0],
-                                 r.tokens, int(d[0]))
-            if gap > LOGIT_TOL:
-                fail(f"gemma3-1b serve request {r.uid} (prompt "
-                     f"{req.prompt_len}): token {int(r.tokens[d[0]])} at "
-                     f"step {int(d[0])} against generate's "
-                     f"{int(g.tokens[0, d[0]])}, logits {gap:.3e} of the "
-                     f"largest apart (limit {LOGIT_TOL})")
-            parted[r.uid] = (int(d[0]), gap)
+    parted = against_generate("gemma3-1b serve", eng, workload, a, 32,
+                              LOGIT_TOL)
     ttft, lat = a.ttft_percentiles(), a.latency_percentiles()
     log(f"  gemma3-1b serve (16 requests, prompts "
         f"{min(r.prompt_len for r in a.results)}..."
@@ -3571,7 +3630,8 @@ def window_serve(dev, cell, counters) -> dict:
         f" with a window; against generate one request at a time: "
         + (f"requests part at f32 near-ties {parted}" if parted
            else "every request's tokens identical"))
-    return {"launches": launches, "eager_launches": {}, "window": window}
+    return {"launches": launches, "eager_launches": {}, "window": window,
+            "contiguous": a, "workload": workload}
 
 
 def flash_window_timing(dev, gen, flush, B, H, KVH, hd, S, kind) -> dict:
@@ -3580,7 +3640,8 @@ def flash_window_timing(dev, gen, flush, B, H, KVH, hd, S, kind) -> dict:
     version, its byte bound and SDPA with the window in its mask."""
     from repro_torch.kernels import decode_attention as fd
     args = flash_inputs(gen, dev, B, H, KVH, hd, S, S, kind, ring=True)
-    cl = fd.launch_geometry(B * KVH, S, fd.slots_per_warp(
+    cl = fd.launch_geometry(B * KVH * fd.group_splits(H // KVH), S,
+                            fd.slots_per_warp(
         hd, args[1].element_size()), fd.cluster_capacity(
         dev, fd._KV_KIND[args[1].dtype], hd, H // KVH))
     return flash_timed(args, S, kind, flush,
@@ -3626,7 +3687,8 @@ def window_phase(dev, counters):
     flash-decode's window mode at both Gemma3 ring shapes and its G 7
     (Qwen2-7B) at that cell's decode shape, kernel 3 at Gemma3-27B's w1
     and w2 at M 4.  Returns (runs, served, {kernel: timing keys},
-    {path: flash-decode launches with a window})."""
+    {path: flash-decode launches with a window}, Gemma3-1B's engine,
+    workload and contiguous serve for phase 14's paged run)."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(31)
     keys = ("launches", "eager_launches", "compress_s", "prefill_ms",
@@ -3642,6 +3704,8 @@ def window_phase(dev, counters):
         window[f"{name}_eager"] = cell["window"]["eager"]
         if name == "gemma3_1b":
             sv = window_serve(dev, cell, counters)
+            gemma = {"engine": cell["engine"], "workload": sv.pop("workload"),
+                     "contiguous": sv.pop("contiguous")}
             served["gemma3_1b_serve"] = sv
             window["gemma3_1b_serve"] = sv.pop("window")
             timed = flash_window_timing(dev, gen, flush, 4, 4, 1, 256, 512,
@@ -3663,7 +3727,292 @@ def window_phase(dev, counters):
         torch.cuda.empty_cache()
         log(f"  {name} took {time.perf_counter() - t0:.1f} s")
     return runs, served, {"flash_decode_attention": flash,
-                          "quant_matmul": qmm}, window
+                          "quant_matmul": qmm}, window, gemma
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the stateful mixers (RecurrentGemma-9B's RG-LRU blocks and its
+# G 16 local layers, xLSTM-125M's mLSTM / sLSTM blocks) and the paged
+# cache's mixed plans, run after phase 13 (before phase 9)
+# ---------------------------------------------------------------------------
+
+# the depth cut: RecurrentGemma-9B's 38 layers go to two Griffin periods
+# (4 recurrent, 2 local layers), every position of the pattern; its widths
+# stay as published.  xLSTM-125M runs all 12 layers.
+RECURRENTGEMMA_LAYERS = 6
+
+
+def stateful_config(arch: str, layers):
+    import dataclasses
+    from repro_torch.models.transformer import layer_specs
+    from repro_torch.registry import get_config
+    full = get_config(arch)
+    cut = full if layers is None else dataclasses.replace(full,
+                                                          num_layers=layers)
+    kinds = [s.mixer for s in layer_specs(cut)]
+    log(f"  config {cut.name}: d_model {cut.d_model}, heads {cut.num_heads}"
+        f"/{cut.num_kv_heads} kv (G {cut.q_per_kv}), head_dim "
+        f"{cut.head_dim}, d_ff {cut.d_ff}, vocab {cut.vocab_size}, lru "
+        f"width {cut.lru_width}, conv width {cut.conv1d_width}, act "
+        f"{cut.act}; mixers " + ", ".join(f"{kinds.count(k)} {k}" for k in
+                                          dict.fromkeys(kinds))
+        + (f" (window {cut.window_size})" if "local" in kinds else ""))
+    log("  depth " + (f"{full.num_layers} layers, as published (no cut)"
+                      if layers is None else
+                      f"cut: {full.num_layers} -> {layers} layers (widths "
+                      f"as published)"))
+    return cut
+
+
+def gate_share(eng, B: int, flush, step_ms: float) -> dict:
+    """RecurrentGemma's RG-LRU gate matrices at decode: the two f32 (w, w)
+    products of ``_lru_coeffs`` (u @ rg_wa, u @ rg_wx) of one recurrent
+    layer at batch B, timed alone, times the recurrent layers, against
+    the graph's device ms per step; and their byte bound."""
+    rp = [lp["rglru"] for lp in eng.params["layers"] if "rglru" in lp]
+    w = rp[0]["rg_wa"].shape[0]
+    u = torch.randn((B, w), device=eng.device)
+    t = time_ms(lambda: (u @ rp[0]["rg_wa"], u @ rp[0]["rg_wx"]), 20, flush)
+    per = _ms("rg-lru gates", t)
+    nb = 2 * w * w * 4 + 2 * B * w * 4 * 2
+    bms, by = bound(nb, 4 * B * w * w)
+    out = {"gates_ms_per_layer": per, "gates_bound_ms_per_layer": bms,
+           "recurrent_layers": len(rp), "gates_ms_per_step": per * len(rp),
+           "gates_share_of_step": per * len(rp) / step_ms}
+    log(f"  rg-lru gate matrices (2 x f32 ({w}, {w}) at B={B}, "
+        f"{nb / 1e6:.1f} MB a layer): {_fmt(t)} per layer, bound "
+        f"{bms:.4f} ms ({by}); x {len(rp)} recurrent layers = "
+        f"{per * len(rp):.4f} ms of the graph's {step_ms:.4f} ms device "
+        f"step ({out['gates_share_of_step']:.3f})")
+    return out
+
+
+def stateful_cell(dev, name: str, counters) -> dict:
+    """One cell of phase 14 through ``serve_slice`` (graph against eager,
+    the profiles).  RecurrentGemma-9B (bf16, RECURRENTGEMMA_LAYERS deep):
+    dense FFNs compressed to E = 1 stacks, 4 prompts of 2040 tokens and
+    32 new (decode wraps the 2048-slot rings), the eager loop's launches
+    checked exactly (flash-decode with a window once per local layer and
+    step, kernel 3 three times per layer and forward), ``teacher_forced``
+    against the impl='ref' engine under LOGIT_TOL_BF16, the gate
+    matrices' share of the step.  xLSTM-125M (f32, 12 layers,
+    unquantized: no TPU kernel lies on its path): 4 prompts of 512 tokens
+    (two mLSTM chunks) and 32 new, then prefill-then-decode logits on the
+    generated tokens against one forward pass over prompt and tokens
+    (a single mLSTM chunk) within LOGIT_TOL of its largest."""
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.models import model as lm
+    from repro_torch.models.transformer import (ExecContext,
+                                                compress_dense_params,
+                                                init_params, layer_specs)
+    from repro_torch.serve.engine import ServeEngine
+    rg = name == "recurrentgemma_9b"
+    cfg = stateful_config("recurrentgemma-9b" if rg else "xlstm-125m",
+                          RECURRENTGEMMA_LAYERS if rg else None)
+    dtype = torch.bfloat16 if rg else torch.float32
+    B, P, NEW = 4, 2040 if rg else 512, 32
+    n_local = sum(s.mixer == "local" for s in layer_specs(cfg))
+    log(f"  weights and activations in {dtype} (states f32); {B} prompts x "
+        f"{P} tokens, {NEW} new")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if rg:
+        params, cfg = compress_dense_params(params, cfg)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    stacks = params["layers"][0]["ffn"]["stacks"] if rg else None
+    log(f"  init {t_init:.2f} s; compression {t_comp:.2f} s"
+        + (f" ({cfg.num_layers} dense layers x 3 E=1 stacks; layer-0 ranks "
+           f"{ {k: st.ranks[0] for k, st in stacks.items()} })" if rg else
+           " (none: the technique does not apply, served unquantized)")
+        + f"; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompts = np.random.default_rng(14).integers(
+        2, cfg.vocab_size, (B, P)).astype(np.int32)
+    sv = serve_slice(dev, cfg, params, prompts, NEW,
+                     {**counters, "flash_decode_window": fd.window_launches})
+    eng, res = sv["engine"], sv["graph"]
+    launches, eager = sv["launches"], sv["eager_launches"]
+    window = {"graph": launches.pop("flash_decode_window"),
+              "eager": eager.pop("flash_decode_window")}
+    L = cfg.num_layers
+    want = ({"flash_decode_attention": n_local * NEW,
+             "quant_matmul": 3 * L * (NEW + 1), "fused_expert_matmul": 0}
+            if rg else {k: 0 for k in eager})
+    if eager != want or window["eager"] != n_local * NEW:
+        fail(f"{name}: the eager loop's launches {eager}, with a window "
+             f"{window['eager']}; expected {want}, with a window "
+             f"{n_local * NEW}")
+    if rg and (min(launches["quant_matmul"],
+                   launches["flash_decode_attention"], window["graph"]) <= 0):
+        fail(f"{name}: a kernel of the path was never launched: {launches},"
+             f" with a window {window['graph']}")
+    check_generation(res, B, NEW, cfg.vocab_size)
+    if rg:
+        log(f"  {name}: eager loop launches flash-decode (G {cfg.q_per_kv}"
+            f", window {cfg.window_size}) {n_local} times a step, once per "
+            f"local layer, and kernel 3 {3 * L} times a forward")
+        ref = ServeEngine(cfg, params, quantized=True, kernel_impl="ref",
+                          device=dev)
+        teacher_forced(eng, ref, prompts, res.tokens, 0, dtype)
+        del ref
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+        gates = gate_share(eng, B, flush,
+                           sv["profile"]["graph"]["busy_ms"])
+    else:
+        log(f"  {name}: no TPU kernel lies on this path (the JAX package "
+            f"serves xLSTM-125M unquantized, in plain XLA ops): wrapper "
+            f"launches {launches}, eager {eager}")
+        full = np.concatenate([prompts, res.tokens[:, :-1]], axis=1)
+        one = lm.forward(params, torch.as_tensor(full, device=dev), cfg,
+                         ExecContext(mode="train")).logits
+        logits, caches = eng.prefill(prompts, NEW)
+        worst = 0.0
+        for t in range(NEW):
+            ref = one[:, P - 1 + t].float()
+            if not torch.isfinite(logits).all():
+                fail(f"{name} step {t}: non-finite logits")
+            d = float((logits.float() - ref).abs().max() / ref.abs().max())
+            worst = max(worst, d)
+            if d > LOGIT_TOL:
+                fail(f"{name} step {t}: prefill-then-decode logits "
+                     f"{d:.3e} of the largest from one forward pass "
+                     f"(limit {LOGIT_TOL})")
+            logits = eng.step(torch.as_tensor(res.tokens[:, t], device=dev),
+                              caches).logits
+        log(f"  {name} teacher-forced: prefill ({P // 256} mLSTM chunks of "
+            f"256) and {NEW - 1} decode steps on the generated tokens "
+            f"against one forward pass over {P + NEW - 1} tokens (one "
+            f"chunk): max |dlogit| / max |logit| = {worst:.3e} (limit "
+            f"{LOGIT_TOL})")
+        gates = {}
+    torch.cuda.empty_cache()
+    return {"launches": launches, "eager_launches": eager, "window": window,
+            "engine": eng, "stacks": stacks, "cfg": cfg, "gates": gates,
+            "profile": sv["profile"], "prefill_ms": res.prefill_s * 1e3,
+            "decode_tok_s": res.decode_tokens_per_s,
+            "eager_tok_s": sv["eager"].decode_tokens_per_s,
+            "compress_s": t_comp}
+
+
+def paged_mixed(dev, name: str, eng, workload, contiguous, counters) -> dict:
+    """A mixed plan served at page 16 (global layers paged, local rings
+    and recurrent states slot-indexed beside the pools): each request's
+    tokens equal its contiguous run's, up to a first difference at an f32
+    near-tie (the two logits within LOGIT_TOL of the largest); prefix
+    reuse and speculation raise the JAX engine's ``ValueError``."""
+    for c in counters.values():
+        c.reset()
+    paged = eng.serve(workload(), num_slots=4, chunk=8, seed=0, page_size=16)
+    launches = {n: c.n for n, c in counters.items()}
+    parted = {}
+    for req, a, b in zip(workload(), paged.results, contiguous.results):
+        d = np.nonzero(a.tokens != b.tokens)[0]
+        if d.size:
+            gap = logit_near_tie(eng, np.asarray(req.tokens), b.tokens,
+                                 a.tokens, int(d[0]))
+            if gap > LOGIT_TOL:
+                fail(f"{name} paged request {a.uid}: token "
+                     f"{int(a.tokens[d[0]])} at step {int(d[0])} against the"
+                     f" contiguous run's {int(b.tokens[d[0]])}, logits "
+                     f"{gap:.3e} of the largest apart")
+            parted[a.uid] = (int(d[0]), gap)
+    for kw in ({"page_size": 16, "prefix_cache": True},
+               {"spec_k": 2, "drafter": "ngram"}):
+        try:
+            eng.serve(workload()[:1], num_slots=4, chunk=8, seed=0, **kw)
+        except ValueError as e:
+            log(f"  {name}: serve({kw}) refused: {e}")
+        else:
+            fail(f"{name}: serve({kw}) ran on a plan that is not all "
+                 "global")
+    log(f"  {name} paged (page 16, {len(paged.results)} requests, 4 slots):"
+        f" {paged.generated_tokens} tokens in {paged.total_s:.3f} s = "
+        f"{paged.tokens_per_s:.2f} tok/s; cache "
+        f"{paged.cache_hbm_bytes / 2**20:.1f} MiB (contiguous "
+        f"{contiguous.cache_hbm_bytes / 2**20:.1f} MiB); pages "
+        f"{paged.page_report}; wrapper launches {launches}; against the "
+        f"contiguous run: " + (f"requests part at f32 near-ties {parted}"
+                               if parted else "every request's tokens "
+                               "identical"))
+    return {"launches": launches, "eager_launches": {}}
+
+
+def stateful_phase(dev, counters, gemma):
+    """Phase 14's two cells, RecurrentGemma's serve contiguous and paged,
+    Gemma3-1B's phase-13 serve paged (``gemma``: its engine, workload and
+    contiguous run), and kernel 3 timed at RecurrentGemma's w1 and w2 at
+    M 4 (phase 4 times flash-decode at its G 16 ring).  Returns (runs,
+    served, {kernel: timing keys}, {path: flash-decode launches with a
+    window}, {gate keys})."""
+    from repro_torch.serve import synthetic_workload
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    keys = ("launches", "eager_launches", "compress_s", "prefill_ms",
+            "decode_tok_s", "eager_tok_s", "profile")
+    runs, served, window, qmm = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    log("  -- Gemma3-1B paged (phase 13's engine and 16 requests)")
+    served["gemma3_1b_paged"] = paged_mixed(
+        dev, "gemma3-1b", gemma["engine"], gemma["workload"],
+        gemma["contiguous"], counters)
+    log(f"  gemma3-1b paged took {time.perf_counter() - t0:.1f} s")
+    gates = {}
+    for name in ("recurrentgemma_9b", "xlstm_125m"):
+        t0 = time.perf_counter()
+        log(f"  -- {name}")
+        cell = stateful_cell(dev, name, counters)
+        runs[name] = {k: cell[k] for k in keys}
+        window[name] = cell["window"]["graph"]
+        window[f"{name}_eager"] = cell["window"]["eager"]
+        if name == "recurrentgemma_9b":
+            gates = cell["gates"]
+            eng, cfg = cell["engine"], cell["cfg"]
+
+            def workload():
+                return synthetic_workload(8, cfg.vocab_size, max_new=16,
+                                          min_len=1024, max_len=2040,
+                                          seed=9)
+            for c in counters.values():
+                c.reset()
+            contiguous = eng.serve(workload(), num_slots=4, chunk=8, seed=0)
+            served["recurrentgemma_serve"] = {
+                "launches": {n: c.n for n, c in counters.items()},
+                "eager_launches": {}}
+            # batch 1 against the serve's batch 4, both in bf16: a near-tie
+            # is two logits within the bf16 protocol's limit
+            parted = against_generate("recurrentgemma-9b serve", eng,
+                                      workload, contiguous, 16,
+                                      LOGIT_TOL_BF16)
+            log(f"  recurrentgemma-9b serve (8 requests of "
+                f"{min(r.prompt_len for r in contiguous.results)}..."
+                f"{max(r.prompt_len for r in contiguous.results)} tokens, "
+                f"16 new, 4 slots, chunk 8): {contiguous.generated_tokens} "
+                f"tokens in {contiguous.total_s:.3f} s = "
+                f"{contiguous.tokens_per_s:.2f} tok/s; decode "
+                f"{contiguous.decode_s:.3f} s; prefill "
+                f"{contiguous.prefill_s:.3f} s ({contiguous.prefill_tokens} "
+                f"tokens, each prompt at its exact length); against generate"
+                f" one request at a time: "
+                + (f"requests part at bf16 near-ties {parted}" if parted
+                   else "every request's tokens identical"))
+            served["recurrentgemma_paged"] = paged_mixed(
+                dev, "recurrentgemma-9b", eng, workload, contiguous,
+                counters)
+            for proj in ("w1", "w2"):
+                qmm.update({f"recurrentgemma_9b_{proj}_{k}": v for k, v in
+                            qmm_stack_timing(dev, gen, flush,
+                                             cell["stacks"][proj], 4,
+                                             f"recurrentgemma-9b {proj}"
+                                             ).items() if k != "bound_by"})
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {name} took {time.perf_counter() - t0:.1f} s")
+    return runs, served, {"quant_matmul": qmm}, window, gates
 
 
 # ---------------------------------------------------------------------------
@@ -3909,7 +4258,9 @@ def entry_phase(dev, counters) -> dict:
 def profiled(fn):
     """Run ``fn`` and synchronise under the profiler.  Returns ([(kernel
     name, device ms)], host-clock s): each device kernel the profiler saw,
-    once."""
+    once, read from its raw events (as ``device_busy`` does: the per-event
+    Python post-processing of an xLSTM prefill's ~75000 kernels and their
+    host events took tens of seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -3918,10 +4269,9 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    seen = {(ev.name, ev.time_range.start, ev.time_range.end): ev
-            for ev in prof.events() if ev.device_type == DeviceType.CUDA}
-    return [(name, ev.time_range.elapsed_us() / 1e3)
-            for (name, _, _), ev in seen.items()], wall
+    return [(e.name(), e.duration_ns() / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA], wall
 
 
 # the port's kernels by the names of their device functions: kernel 1
@@ -3941,9 +4291,11 @@ def log_top(kernels, per: int, what: str) -> None:
         log(f"    {ms / per:8.4f} ms/{what}  {name[:100]}")
 
 
-def profile_decode(eng, prompts, step_s: float, steps: int = 4) -> dict:
+def profile_decode(eng, prompts, max_new: int, step_s: float,
+                   steps: int = 4) -> dict:
     """Where a decode step's time goes: ``eng.decode`` over ``steps``
-    steps under the profiler (graph replays on a graph engine, eager
+    steps of a prefill sized for ``max_new`` (the timed run's bucket, so
+    its graph replays) under the profiler (graph replays on a graph engine, eager
     steps otherwise), the device time of every kernel against the
     host-clock time of a step with the profiler on and of ``step_s`` (a
     step of the unprofiled ``generate`` run); the card's idle share is
@@ -3955,7 +4307,7 @@ def profile_decode(eng, prompts, step_s: float, steps: int = 4) -> dict:
     gaps between its kernels included).  A step's other kernels are the
     eager ops between replays (sampling, log-prob, the token and trace
     copies), so the host launches per step are those ops plus one."""
-    logits, caches = eng.prefill(prompts, steps + 1)
+    logits, caches = eng.prefill(prompts, max_new)
     torch.cuda.synchronize()
     kernels, wall = profiled(lambda: eng.decode(logits, caches, steps))
     busy = sum(ms for _, ms in kernels) / steps
@@ -4188,13 +4540,30 @@ def main() -> int:
     log("== phase 13: sliding-window models (Gemma3-1B, Gemma3-27B) and "
         "QKV biases (Qwen2-7B), before phase 9")
     t13 = time.perf_counter()
-    wruns, wserved, wtable, wwindow = window_phase(dev, counters)
+    wruns, wserved, wtable, wwindow, gemma = window_phase(dev, counters)
     runs.update(wruns)
     served.update(wserved)
     for name, extra in wtable.items():
         table[name].update(extra)
     table["flash_decode_attention"]["launches_window_by_path"] = wwindow
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    log("== phase 14: the stateful mixers (RecurrentGemma-9B, xLSTM-125M) "
+        "and the paged cache's mixed plans, before phase 9")
+    t14 = time.perf_counter()
+    sruns, sserved, stable, swindow, gates = stateful_phase(dev, counters,
+                                                            gemma)
+    del gemma
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(sruns)
+    served.update(sserved)
+    for name, extra in stable.items():
+        table[name].update(extra)
+    table["flash_decode_attention"]["launches_window_by_path"].update(
+        swindow)
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s; rg-lru gate "
+        f"matrices {gates}")
 
     log("== phase 9: the entry points: compress CLI -> artifact -> serve "
         "CLI (Qwen3-MoE-30B-A3B)")

@@ -1,10 +1,10 @@
 """Frozen-dataclass configuration for the PyTorch port.
 
 A copy of the subset of ``repro/config.py`` that the serving slices read
-(``QuantConfig``, ``MoEConfig``, ``ModelConfig``, ``ControlConfig``,
-``ServeConfig`` and ``RANK_BUCKETS``).  Field names and defaults match
-the JAX package, so a config built here describes the same model as its
-JAX twin.
+(``QuantConfig``, ``MoEConfig``, ``EncoderConfig``, ``ModelConfig``,
+``ControlConfig``, ``ServeConfig`` and ``RANK_BUCKETS``).  Field names
+and defaults match the JAX package, so a config built here describes the
+same model as its JAX twin.
 """
 from __future__ import annotations
 
@@ -59,6 +59,17 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder tower of an encoder-decoder model (the port refuses such a
+    config in ``layer_specs``: ROADMAP A12)."""
+    num_layers: int
+    d_model: int
+    num_heads: int
+    d_ff: int
+    source_len: int = 1500
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """Decoder-only model description (the fields the port reads)."""
     name: str
@@ -74,6 +85,7 @@ class ModelConfig:
     window_size: int = 4096
     rope_theta: float = 10_000.0
     rope_local_theta: float = 0.0      # local layers' theta (0: rope_theta)
+    rope_kind: str = "default"         # default | mrope | none
     act: str = "silu"
     norm_eps: float = 1e-6
     qkv_bias: bool = False
@@ -86,6 +98,10 @@ class ModelConfig:
     first_layer_dense: bool = False
     gated_ffn: bool = True             # False -> plain 2-matrix MLP
     quant: QuantConfig = field(default_factory=QuantConfig)
+    encoder: Optional[EncoderConfig] = None
+    # --- recurrent (RG-LRU) ---------------------------------------------
+    lru_width: int = 0                 # RG-LRU recurrence width (0 -> d_model)
+    conv1d_width: int = 4              # temporal conv width in recurrent block
     max_position: int = 524_288
     kv_bits: int = 16                  # 8 = int8 KV cache
     force_unroll_plan: bool = False

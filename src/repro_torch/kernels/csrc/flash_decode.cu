@@ -48,6 +48,20 @@
 //    the probabilities come through shared memory.  Templated on the
 //    group size (1, 2, 3, 4, or 8 for 5..8): no spills at any
 //    instantiation.
+// 6. G 9..16 query heads per kv head (RecurrentGemma's MQA: G 16 at hd
+//    256).  A GP 16 instantiation does not fit: its warp merge needs
+//    kWarps * 16 * (HD + 2) * 4 = 66 KB at hd 256, more than the K/V ring
+//    it reuses (48 KB in f32, 64 KB in bf16), and its online-softmax state
+//    (16 x EPL accumulators and 5 x 16 per-head values per lane) would not
+//    stay in the 255 registers of two blocks per SM.  So a kv head's G
+//    query heads split into ceil(G / 2) query-head groups of 2, each a
+//    block row of its own (grid y = KVH * groups, the GP 2 code as it
+//    is): every group reads the kv head's K/V, mostly from L2, and the
+//    grid has G / 2 times the rows to fill the card with at MQA's B * KVH
+//    = B.  Measured at RecurrentGemma's ring (B 4, S 2048, hd 256; bf16 /
+//    f32 ms, tools/flash_decode_timing.py, PERF.md PR 29): 2 groups of 8
+//    0.0477 / 0.0528, 4 of 4 0.0421 / 0.0447, 8 of 2 0.0347 / 0.0399, 16
+//    of 1 0.0430 / 0.0588 (its 64 rows take clusters of 4, not 8).
 // Measured: S 512 (288 valid), Mixtral's shape, f32 0.016 ms (earlier
 // 0.0205); S 32768 73% of the byte bound in f32 (earlier 41%), 63% in bf16
 // (12%), 43% in int8 (6%).  At S 512 an empty kernel of the same launch
@@ -253,8 +267,8 @@ __device__ __forceinline__ void load_elems(const char* p, float (&out)[N]) {
 
 // q (B,NQ,H,HD) f32 pre-scaled; k/v (B,S,KVH,HD) T; ks/vs (B,S,KVH) bf16
 // or null; kv_pos (B,S) i32; cur (B,NQ) i32; out (B,NQ,H,HD) f32.  Grid
-// (CL, KVH, B * NQ) in clusters of (CL, 1, 1); G real query heads per kv
-// head (<= GP).
+// (CL, KVH * NSPL, B * NQ) in clusters of (CL, 1, 1): G query heads per kv
+// head in NSPL groups of GS (<= GP; the last group may hold fewer).
 // PAGED: block (B, S / PS) i32, and k/v (P,PS,KVH,HD), ks/vs (P,PS,KVH),
 // kv_pos (P,PS) a page pool of n_rows = P * PS rows.
 template <typename T, int HD, int GP, bool PAGED>
@@ -266,8 +280,8 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ kv_pos,
                     const int* __restrict__ cur_pos,
                     const int* __restrict__ block, float* __restrict__ out,
-                    int S, int H, int KVH, int G, int window, int PS,
-                    int n_rows, int NQ) {
+                    int S, int H, int KVH, int G, int GS, int window,
+                    int PS, int n_rows, int NQ) {
   using Gm = Geo<T, HD, GP, PAGED>;
   constexpr int SPW = Gm::SPW, LPS = Gm::LPS, EPV = Gm::EPV, EPL = Gm::EPL;
   constexpr int ST = Gm::ST, PT = Gm::PT, STAGE = Gm::STAGE, STRIDE = Gm::STRIDE;
@@ -281,8 +295,12 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   cg::cluster_group cluster = cg::this_cluster();
   const int CL = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  // vb: the virtual row (row b, query vb % NQ); K/V are row b's
-  const int kvh = blockIdx.y, vb = blockIdx.z, b = vb / NQ;
+  // vb: the virtual row (row b, query vb % NQ); K/V are row b's.
+  // blockIdx.y: kv head kvh's query-head group sub, its GB heads from h0
+  const int NSPL = gridDim.y / KVH;
+  const int kvh = blockIdx.y / NSPL, sub = blockIdx.y % NSPL;
+  const int h0 = kvh * G + sub * GS, GB = min(GS, G - sub * GS);
+  const int vb = blockIdx.z, b = vb / NQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const bool scaled = ks != nullptr;
   const size_t n_scales = PAGED ? (size_t)n_rows * KVH
@@ -492,8 +510,8 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   cp_async_commit();
   const int cur = cur_pos[vb];
   for (int i = tid; i < GP * HD; i += kThreads)
-    q_s[i] = i / HD < G ? q[((size_t)vb * H + (size_t)kvh * G) * HD + i] *
-                              kLog2e : 0.f;
+    q_s[i] = i / HD < GB ? q[((size_t)vb * H + h0) * HD + i] * kLog2e
+                         : 0.f;
   cp_async_wait<0>();
   __syncthreads();                  // q_s; every lane's positions
 #pragma unroll
@@ -555,9 +573,10 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < kMaxCluster; ++r)
     if (r < CL) Ltot += rbm(r)[GP];                    // head 0's l
-  float* orow = out + ((size_t)vb * H + (size_t)kvh * G) * HD;
+  float* orow = out + ((size_t)vb * H + h0) * HD;
   if (Ltot > 0.f) {
-    for (int idx = rank * kThreads + tid; idx < G * HD; idx += CL * kThreads) {
+    for (int idx = rank * kThreads + tid; idx < GB * HD;
+         idx += CL * kThreads) {
       // every rank's values loaded at once, then summed in rank order
       const int g = idx / HD;
       float rm[kMaxCluster], rl[kMaxCluster], ra[kMaxCluster];
@@ -601,7 +620,8 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
       bacc_s[d] = A;
     }
     cluster.sync();
-    for (int idx = rank * kThreads + tid; idx < G * HD; idx += CL * kThreads) {
+    for (int idx = rank * kThreads + tid; idx < GB * HD;
+         idx += CL * kThreads) {
       const int d = idx % HD;
       float A = 0.f;
       for (int r = 0; r < CL; ++r) A += racc(r)[d];
@@ -613,9 +633,9 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, int GP, bool PAGED>
 cudaLaunchConfig_t make_config(cudaLaunchAttribute* attr, int cl, int rows,
-                               int KVH, cudaStream_t stream) {
+                               int groups, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl, KVH, rows);
+  cfg.gridDim = dim3(cl, groups, rows);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = Geo<T, HD, GP, PAGED>::SMEM;
   cfg.stream = stream;
@@ -638,6 +658,14 @@ int prepare() {
   return rc;
 }
 
+// query heads per block row and query-head groups per kv head: all G in
+// one group for G <= 8, groups of 2 for G 9..16 (design note 6)
+constexpr int kMaxGroup = 16;
+inline int group_heads(int G) { return G <= 8 ? G : 2; }
+inline int splits_of(int G) {
+  return (G + group_heads(G) - 1) / group_heads(G);
+}
+
 template <typename T, int HD, int GP, bool PAGED>
 int launch_mode(const float* q, const void* k, const void* v, const void* ks,
                 const void* vs, const int* kv_pos, const int* cur_pos,
@@ -647,13 +675,14 @@ int launch_mode(const float* q, const void* k, const void* v, const void* ks,
   int rc = prepare<T, HD, GP, PAGED>();
   if (rc != 0) return rc;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      make_config<T, HD, GP, PAGED>(attr, cl, B * nq, KVH, stream);
+  const int G = H / KVH;
+  const cudaLaunchConfig_t cfg = make_config<T, HD, GP, PAGED>(
+      attr, cl, B * nq, KVH * splits_of(G), stream);
   rc = (int)cudaLaunchKernelEx(
       &cfg, flash_decode_kernel<T, HD, GP, PAGED>, q, static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const __nv_bfloat16*>(ks),
       static_cast<const __nv_bfloat16*>(vs), kv_pos, cur_pos, block, out, S, H,
-      KVH, H / KVH, window, PS, n_rows, nq);
+      KVH, G, group_heads(G), window, PS, n_rows, nq);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
@@ -669,8 +698,12 @@ int max_clusters(int cl, int* n) {
       n, flash_decode_kernel<T, HD, GP, false>, &cfg);
 }
 
-// the group-size template for G query heads per kv head
-inline int group_of(int G) { return G <= 4 ? G : (G <= 8 ? 8 : -1); }
+// the group-size template for G query heads per kv head (a block row
+// holds group_heads(G) of them)
+inline int group_of(int G) {
+  const int gs = G <= kMaxGroup ? group_heads(G) : -1;
+  return gs <= 4 ? gs : 8;
+}
 
 // F<T, HD, GP>(...) for the run-time (kind, HD, G); cudaErrorInvalidValue
 // where no instantiation exists
@@ -724,7 +757,8 @@ inline bool cluster_ok(int cl) {
 
 inline bool args_ok(int B, int S, int H, int KVH, int cl, int kv_kind,
                     const void* k_scale, const void* v_scale, int nq) {
-  return KVH > 0 && H % KVH == 0 && B > 0 && S > 0 && cluster_ok(cl) &&
+  return KVH > 0 && H % KVH == 0 && H / KVH <= kMaxGroup && B > 0 && S > 0 &&
+         cluster_ok(cl) &&
          nq >= 1 && nq <= kMaxQueries &&
          (kv_kind == 2) == (k_scale != nullptr && v_scale != nullptr);
 }
@@ -737,8 +771,8 @@ extern "C" {
 // kv_kind: 0 = f32 cache, 1 = bf16 cache, 2 = int8 cache with bf16 scales.
 // q (B,nq,H,HD), cur_pos (B,nq), out (B,nq,H,HD) f32: nq query positions
 // per row (1 = single-query decode).  Requires HD in {32, 64, 128, 256},
-// H/KVH <= 8, nq in 1..8, and cl (blocks per (row, kv-head), a cluster)
-// in {1, 2, 4, 8}.
+// H/KVH <= 16, nq in 1..8, and cl (blocks per (row, query-head group), a
+// cluster) in {1, 2, 4, 8}.
 int flash_decode_forward(const float* q, const void* k, const void* v,
                          const void* k_scale, const void* v_scale,
                          const int* kv_pos, const int* cur_pos, float* out,

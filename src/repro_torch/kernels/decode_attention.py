@@ -8,7 +8,9 @@ the probabilities.  The kernel (``csrc/flash_decode.cu``) is one launch:
 the slots of each (row, kv-head) are split over a thread-block cluster
 whose blocks merge in distributed shared memory; see the source note
 there.  ``launch_geometry`` and ``block_slots`` mirror how the kernel
-deals out the slots.
+deals out the slots.  A kv head serves up to ``MAX_GROUP`` query heads:
+G 9..16 run as ceil(G / 2) query-head groups of 2, each a block row of
+its own over the kv head's K/V (``group_splits``).
 
 Both wrappers also take several query positions per row (the verify pass
 of speculative decoding): q (B, Q, H, hd) with a (B, Q) ``cur_pos``, Q <=
@@ -49,6 +51,7 @@ WARPS = 4                     # kWarps: warps per block
 STAGE_BYTES = 16384           # kStageBytes: K + V bytes of a block's stage
 CLUSTERS = (8, 4, 2, 1)       # blocks per (row, kv-head), largest first
 MAX_QUERIES = 8               # kMaxQueries: query positions per row
+MAX_GROUP = 16                # kMaxGroup: query heads per kv head
 
 
 def flash_decode_attention_plain(q, k, v, kv_pos, cur_pos, k_scale=None,
@@ -105,6 +108,13 @@ def _paged_lib() -> ctypes.CDLL:
     return lib
 
 
+def group_splits(g: int) -> int:
+    """Query-head groups of a kv head's ``g`` query heads (the kernel's
+    ``splits_of``), each a block row of its own: 1 for g <= 8, else
+    groups of 2."""
+    return 1 if g <= 8 else -(-g // 2)
+
+
 def slots_per_warp(hd: int, elem_bytes: int) -> int:
     """Slots of one warp tile (the kernel's ``Geo::SPW``): a block-wide
     stage of K and V rows is STAGE_BYTES."""
@@ -113,11 +123,12 @@ def slots_per_warp(hd: int, elem_bytes: int) -> int:
 
 def launch_geometry(rows: int, s: int, spw: int,
                     capacity: Callable[[int], int]) -> int:
-    """Blocks per (row, kv-head) (the cluster size CL) for ``rows`` =
-    B * KVH rows of S slots: the largest CL that leaves no block without a
-    tile (CL <= block tiles of WARPS * spw slots) and keeps the grid one
-    resident wave (rows <= ``capacity(CL)``, the clusters of CL blocks the
-    card holds at once); 1 where even that does not fit."""
+    """Blocks per (row, query-head group) (the cluster size CL) for
+    ``rows`` = B * KVH * ``group_splits(G)`` rows of S slots: the largest
+    CL that leaves no block without a tile (CL <= block tiles of WARPS *
+    spw slots) and keeps the grid one resident wave (rows <=
+    ``capacity(CL)``, the clusters of CL blocks the card holds at once); 1
+    where even that does not fit."""
     tiles = -(-s // (WARPS * spw))
     for cl in CLUSTERS:
         if cl <= tiles and rows <= capacity(cl):
@@ -268,9 +279,9 @@ def _launch(q, k, v, kv_pos, cur_pos, k_scale, v_scale, window, *, block,
     if scaled != (k_scale is not None and v_scale is not None):
         raise ValueError("an int8 cache needs k_scale and v_scale, and only "
                          "an int8 cache takes them")
-    if hd not in (32, 64, 128, 256) or h % kvh or h // kvh > 8:
+    if hd not in (32, 64, 128, 256) or h % kvh or h // kvh > MAX_GROUP:
         raise ValueError(f"flash-decode kernel: hd={hd}, H={h}, KVH={kvh} "
-                         "unsupported (hd in 32..256, H/KVH <= 8)")
+                         f"unsupported (hd in 32..256, H/KVH <= {MAX_GROUP})")
     dev = q.device
     tensors = {"q": q.float().contiguous(), "k": k, "v": v,
                "kv_pos": kv_pos.to(torch.int32).contiguous(),
@@ -292,8 +303,10 @@ def _launch(q, k, v, kv_pos, cur_pos, k_scale, v_scale, window, *, block,
                    or v_scale.dtype != torch.bfloat16):
         raise ValueError("int8 cache scales must be bf16")
     kind = _KV_KIND[k.dtype]
-    cl = launch_geometry(b * kvh, s_len, slots_per_warp(hd, k.element_size()),
-                         cluster_capacity(dev, kind, hd, h // kvh))
+    g = h // kvh
+    cl = launch_geometry(b * kvh * group_splits(g), s_len,
+                         slots_per_warp(hd, k.element_size()),
+                         cluster_capacity(dev, kind, hd, g))
     out = torch.empty(tuple(q.shape), dtype=torch.float32, device=dev)
     ptrs = (tensors["q"].data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if scaled else None,

@@ -1,11 +1,13 @@
-"""KV caches, contiguous and paged, with an optional int8 layout (port
-of the attention-cache part of ``repro/models/kvcache.py``).
+"""KV caches, contiguous and paged, with an optional int8 layout, and the
+recurrent states of the RG-LRU, mLSTM and sLSTM mixers (port of
+``repro/models/kvcache.py``).
 
-A cache is a dict of tensors with a ``pos`` plane (absolute position per
-slot, -1 = empty), so masking is position arithmetic.  Unlike the JAX
-package, writes update the cache tensors in place (no second copy of the
-cache per step, and the tensors a captured decode graph reads stay the
-same ones) and return the same dict.
+An attention cache is a dict of tensors with a ``pos`` plane (absolute
+position per slot, -1 = empty), so masking is position arithmetic; a
+recurrent state is a dict of f32 tensors with a leading batch axis.
+Unlike the JAX package, writes update the cache tensors in place (no
+second copy of the cache per step, and the tensors a captured decode
+graph reads stay the same ones) and return the same dict.
 """
 from __future__ import annotations
 
@@ -35,16 +37,59 @@ def init_attn_cache(batch: int, length: int, kv_heads: int, head_dim: int,
             "pos": pos}
 
 
+def init_rglru_cache(batch: int, width: int, conv_width: int,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """RG-LRU state: the recurrence ``h`` (B, w) and the conv's last
+    ``conv_width - 1`` inputs (B, cw - 1, w), f32."""
+    return {"h": torch.zeros((batch, width), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, conv_width - 1, width),
+                                dtype=torch.float32, device=device)}
+
+
+def init_mlstm_cache(batch: int, heads: int, head_dim: int,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """mLSTM state: matrix memory ``c`` (B, H, hd, hd), normaliser ``n``
+    (B, H, hd) and stabiliser ``m`` (B, H) = -inf, f32."""
+    return {"c": torch.zeros((batch, heads, head_dim, head_dim),
+                             dtype=torch.float32, device=device),
+            "n": torch.zeros((batch, heads, head_dim), dtype=torch.float32,
+                             device=device),
+            "m": torch.full((batch, heads), -float("inf"),
+                            dtype=torch.float32, device=device)}
+
+
+def init_slstm_cache(batch: int, heads: int, head_dim: int,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """sLSTM state: ``c``, ``n``, ``h`` zero and ``m`` -inf, each (B, H,
+    hd) f32."""
+    def z():
+        return torch.zeros((batch, heads, head_dim), dtype=torch.float32,
+                           device=device)
+    return {"c": z(), "n": z(), "h": z(),
+            "m": torch.full((batch, heads, head_dim), -float("inf"),
+                            dtype=torch.float32, device=device)}
+
+
+def slot_fill(name: str) -> float:
+    """Empty-slot fill value per cache plane (the JAX package's
+    ``_slot_fill``): position planes and block tables -1 (unwritten or
+    unmapped), an xLSTM stabiliser ``m`` -inf (the identity of its max),
+    everything else zero."""
+    if name in ("pos", "block"):
+        return -1
+    if name == "m":
+        return -float("inf")
+    return 0
+
+
 def reset_attn_cache(cache: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-    """Put a cache, contiguous or paged, back to its ``init_attn_cache`` /
-    ``init_paged_attn_cache`` state in place: K, V (and int8 scales) zero,
-    every slot empty (pos -1), every block-table entry unmapped (-1)."""
+    """Put a layer's cache (contiguous or paged attention, or a recurrent
+    state) back to its ``init_*`` state in place: every plane at its
+    ``slot_fill`` value."""
     for name, t in cache.items():
-        if name in ("pos", "block"):
-            t.fill_(-1)
-        else:
-            t.zero_()
+        t.fill_(slot_fill(name))
     return cache
 
 
@@ -61,10 +106,11 @@ def claim_slot(cache: Dict[str, torch.Tensor],
 
 def reset_slot(cache: Dict[str, torch.Tensor], slot: int
                ) -> Dict[str, torch.Tensor]:
-    """Clear row ``slot`` back to the empty-slot state in place: position
-    planes -1 (unwritten, masked by decode attention), the rest zero."""
+    """Clear row ``slot`` back to the empty-slot state in place, each
+    plane at its ``slot_fill`` value (position planes -1: unwritten,
+    masked by decode attention)."""
     for name, t in cache.items():
-        t[slot].fill_(-1 if name == "pos" else 0)
+        t[slot].fill_(slot_fill(name))
     return cache
 
 

@@ -1,13 +1,17 @@
 """Layer stack: parameter init, offline compression, caches and the
-per-layer forward (port of the attention-layer subset of
+per-layer forward (port of the decoder-only part of
 ``repro/models/transformer.py``).
 
 Parameters are plain dicts of tensors with one dict per layer under
 ``params["layers"]`` (the JAX package's scanned segments become a Python
-loop).  Only the layers the serving slices run are ported: a global or
-local (sliding-window) attention mixer, with QKV biases and Gemma-style
-post-norms where the config asks for them, followed by an MoE FFN or a
-dense FFN.  A local layer's KV cache is a ring of ``window_size`` slots.
+loop).  A layer's mixer is global or local (sliding-window) attention,
+with QKV biases and Gemma-style post-norms where the config asks for
+them, or a Griffin recurrent block (RG-LRU + conv1d), each followed by an
+MoE FFN or a dense FFN; or a self-contained xLSTM block (mLSTM, or sLSTM
+with its own gated FFN).  A local layer's KV cache is a ring of
+``window_size`` slots; a recurrent or xLSTM layer's cache is its O(1)
+state, written in place.  Cross-attention (an ``encoder`` config) and
+mrope are not ported: ``layer_specs`` refuses them (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -21,18 +25,23 @@ from ..config import ModelConfig
 from .attention import attention, decode_attention, paged_decode_attention
 from .ffn import ffn_apply, ffn_apply_quantized
 from .kvcache import (TRASH_PAGE, claim_slot, dequant_scales,
-                      init_attn_cache, init_paged_attn_cache, is_paged,
-                      paged_claim,
+                      init_attn_cache, init_mlstm_cache,
+                      init_paged_attn_cache, init_rglru_cache,
+                      init_slstm_cache, is_paged, paged_claim,
                       paged_reset, paged_seed_prefix,
                       paged_update_attn_cache, prefill_attn_cache,
                       reset_attn_cache, reset_slot, update_attn_cache)
-from .layers import apply_rope, dense_init, embed_init, rms_norm
+from .layers import apply_rope, dense_init, embed_init, rms_norm, silu
 from .moe import RoutingInfo, moe_apply
+from .rglru import rglru_seq, rglru_step
+from .xlstm import mlstm_chunkwise, mlstm_step, slstm_seq
+
+MIXERS = ("global", "local", "recurrent", "mlstm", "slstm")
 
 
 class LayerSpec(NamedTuple):
-    mixer: str          # global | local (sliding window)
-    ffn: str            # moe | dense
+    mixer: str          # global | local | recurrent | mlstm | slstm
+    ffn: str            # moe | dense | none
 
 
 @dataclasses.dataclass
@@ -51,24 +60,36 @@ class ExecContext:
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    """Each layer's (mixer, ffn); an xLSTM block carries no separate FFN.
+    An encoder-decoder config or mrope raises ``NotImplementedError``."""
+    if cfg.encoder is not None or cfg.rope_kind == "mrope":
+        raise NotImplementedError(
+            f"{cfg.name}: " + ("cross-attention and the encoder"
+                               if cfg.encoder is not None else "mrope")
+            + " are not ported yet: ROADMAP A12")
     specs = []
     for i in range(cfg.num_layers):
         mixer = cfg.layer_kind(i)
-        moe = cfg.moe is not None and cfg.is_moe_layer(i) and not (
-            i == 0 and cfg.first_layer_dense)
-        if mixer not in ("global", "local"):
-            raise NotImplementedError(
-                f"layer {i} of {cfg.name} is ({mixer}, "
-                f"{'moe' if moe else 'dense'}); the port runs global and "
-                "local attention layers only (ROADMAP A12)")
-        specs.append(LayerSpec(mixer, "moe" if moe else "dense"))
+        if mixer not in MIXERS:
+            raise ValueError(f"layer {i} of {cfg.name}: unknown mixer "
+                             f"{mixer!r}")
+        if mixer in ("mlstm", "slstm"):
+            ffn = "none"
+        elif cfg.moe is not None and cfg.is_moe_layer(i) and not (
+                i == 0 and cfg.first_layer_dense):
+            ffn = "moe"
+        else:
+            ffn = "dense"
+        specs.append(LayerSpec(mixer, ffn))
     return specs
 
 
-def has_local(cfg: ModelConfig) -> bool:
-    """Whether the plan has a sliding-window layer (whose ring cache can
-    neither invalidate prompt padding nor roll back a rejected draft)."""
-    return any(s.mixer == "local" for s in layer_specs(cfg))
+def all_global(cfg: ModelConfig) -> bool:
+    """Whether every mixer is global attention: only such a plan's caches
+    can invalidate right-padded prompt tokens, seed a prefix from shared
+    pages or roll back a rejected draft (a ring or a recurrent state
+    cannot)."""
+    return all(s.mixer == "global" for s in layer_specs(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -85,16 +106,22 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    p = {
-        "pre_norm": zeros((d,)),
-        "attn": {"wq": di((d, h, hd), d), "wk": di((d, kv, hd), d),
-                 "wv": di((d, kv, hd), d), "wo": di((h, hd, d), h * hd)},
-        "ffn_norm": zeros((d,)),
-    }
-    if cfg.qkv_bias:
-        # zeros, as the JAX package initialises them
-        p["attn"].update(bq=zeros((h, hd)), bk=zeros((kv, hd)),
-                         bv=zeros((kv, hd)))
+    p = {"pre_norm": zeros((d,))}
+    if spec.mixer in ("mlstm", "slstm"):
+        # self-contained blocks
+        p[spec.mixer] = (_init_mlstm if spec.mixer == "mlstm"
+                         else _init_slstm)(cfg, di, zeros, device)
+        return p
+    if spec.mixer == "recurrent":
+        p["rglru"] = _init_rglru(cfg, di, device)
+    else:
+        p["attn"] = {"wq": di((d, h, hd), d), "wk": di((d, kv, hd), d),
+                     "wv": di((d, kv, hd), d), "wo": di((h, hd, d), h * hd)}
+        if cfg.qkv_bias:
+            # zeros, as the JAX package initialises them
+            p["attn"].update(bq=zeros((h, hd)), bk=zeros((kv, hd)),
+                             bv=zeros((kv, hd)))
+    p["ffn_norm"] = zeros((d,))
     if cfg.post_attn_norm:
         p["post_norm"] = zeros((d,))
         p["post_ffn_norm"] = zeros((d,))
@@ -115,6 +142,53 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
         if cfg.gated_ffn:
             p["ffn"]["w3"] = di((d, ff), d)
     return p
+
+
+# the recurrent mixers' leaves: the JAX package's names, shapes and dtypes
+# (its ``_init_rglru``, ``_init_mlstm``, ``_init_slstm``); ``di(shape,
+# fan_in[, dtype])`` draws a fan-in init in the model's dtype by default
+
+def _init_rglru(cfg: ModelConfig, di, device):
+    d, w, f32 = cfg.d_model, cfg.lru_width or cfg.d_model, torch.float32
+
+    def z():
+        return torch.zeros((w,), dtype=f32, device=device)
+    return {"wx": di((d, w), d), "wgate": di((d, w), d),
+            "conv_w": di((cfg.conv1d_width, w), cfg.conv1d_width, f32),
+            "conv_b": z(), "rg_wa": di((w, w), w, f32), "rg_ba": z(),
+            "rg_wx": di((w, w), w, f32), "rg_bx": z(),
+            # recurrence a^c in (0.9, 0.999): lam = softplus^-1(-log a)
+            "lam": torch.full((w,), 0.65, dtype=f32, device=device),
+            "wo": di((w, d), w)}
+
+
+def _init_mlstm(cfg: ModelConfig, di, zeros, device):
+    d, nh = cfg.d_model, cfg.num_heads
+    e = 2 * d
+    hd = e // nh
+    b_if = torch.cat([torch.zeros((nh,), device=device),
+                      torch.full((nh,), 3.0, device=device)])
+    return {"w_up": di((d, 2 * e), d),                   # (u, z gate)
+            "wq": di((e, nh, hd), e), "wk": di((e, nh, hd), e),
+            "wv": di((e, nh, hd), e),
+            "w_if": di((e, 2 * nh), e, torch.float32),
+            "b_if": b_if,
+            "w_down": di((e, d), e), "out_norm": zeros((e,))}
+
+
+def _init_slstm(cfg: ModelConfig, di, zeros, device):
+    d, nh = cfg.d_model, cfg.num_heads
+    hd = d // nh
+    ff = int(d * 4 / 3 / 64 + 1) * 64
+    f32 = torch.float32
+    return {"w_zifo": di((d, 4, nh, hd), d),
+            "b_zifo": torch.zeros((4, nh, hd), dtype=f32, device=device),
+            **{r: di((nh, hd, hd), hd, f32) for r in ("rz", "ri", "rf",
+                                                      "ro")},
+            "out_norm": zeros((d,)),
+            "ffn": {"w1": di((d, ff), d), "w3": di((d, ff), d),
+                    "w2": di((ff, d), ff)},
+            "ffn_norm": zeros((d,))}
 
 
 @torch.no_grad()
@@ -238,45 +312,68 @@ def compress_dense_params(params, cfg: ModelConfig, qcfg=None):
 # caches
 # ---------------------------------------------------------------------------
 
+def _state_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, device):
+    """A recurrent or xLSTM layer's O(1) state for ``batch`` rows."""
+    if spec.mixer == "recurrent":
+        return init_rglru_cache(batch, cfg.lru_width or cfg.d_model,
+                                cfg.conv1d_width, device=device)
+    if spec.mixer == "mlstm":
+        e = 2 * cfg.d_model
+        return init_mlstm_cache(batch, cfg.num_heads, e // cfg.num_heads,
+                                device=device)
+    return init_slstm_cache(batch, cfg.num_heads,
+                            cfg.d_model // cfg.num_heads, device=device)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> Dict:
     """Contiguous caches of ``max_len`` slots per row; a local layer's is a
     ring of ``min(window_size, max_len)`` slots (slot = position mod its
-    length)."""
-    return {"layers": [init_attn_cache(
+    length); a recurrent or xLSTM layer's is its state."""
+    def one(spec: LayerSpec):
+        if spec.mixer in ("global", "local"):
+            return init_attn_cache(
                 batch, min(cfg.window_size, max_len)
                 if spec.mixer == "local" else max_len, cfg.num_kv_heads,
                 cfg.head_dim, dtype, kv_bits=cfg.kv_bits, device=device)
-                       for spec in layer_specs(cfg)],
+        return _state_cache(spec, cfg, batch, device)
+
+    return {"layers": [one(spec) for spec in layer_specs(cfg)],
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
 def init_paged_caches(cfg: ModelConfig, num_slots: int, num_pages: int,
                       page_size: int, max_blocks: int,
                       dtype=torch.bfloat16, device=None) -> Dict:
-    """Slotted serve caches with paged attention layers: each layer owns
-    a (num_pages, page_size, ...) pool and a (num_slots, max_blocks)
-    block table, all layers sharing one page-id space, so the host
-    allocator hands out one page list per request.  A plan with a local
-    layer raises: the JAX package keeps its rings contiguous beside the
-    paged layers, a mixed plan the port does not have yet (ROADMAP
-    A12)."""
-    if has_local(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: a paged cache for a plan with local (ring) layers "
-            "is not ported yet: ROADMAP A12")
-    return {"layers": [init_paged_attn_cache(
+    """Slotted serve caches with paged global-attention layers: each
+    global layer owns a (num_pages, page_size, ...) pool and a (num_slots,
+    max_blocks) block table, all of them sharing one page-id space, so the
+    host allocator hands out one page list per request.  Local rings of
+    ``min(window_size, max_blocks * page_size)`` slots and recurrent /
+    xLSTM states are window-bounded or O(1) already and stay slot-indexed
+    beside the pools (the JAX package's mixed plans)."""
+    def one(spec: LayerSpec):
+        if spec.mixer == "global":
+            return init_paged_attn_cache(
                 num_slots, num_pages, page_size, max_blocks,
                 cfg.num_kv_heads, cfg.head_dim, dtype, kv_bits=cfg.kv_bits,
-                device=device) for _ in layer_specs(cfg)],
+                device=device)
+        if spec.mixer == "local":
+            return init_attn_cache(
+                num_slots, min(cfg.window_size, max_blocks * page_size),
+                cfg.num_kv_heads, cfg.head_dim, dtype, kv_bits=cfg.kv_bits,
+                device=device)
+        return _state_cache(spec, cfg, num_slots, device)
+
+    return {"layers": [one(spec) for spec in layer_specs(cfg)],
             "pos": torch.zeros((num_slots,), dtype=torch.int32,
                                device=device)}
 
 
 def reset_caches(caches: Dict) -> Dict:
-    """Put caches (contiguous or paged) back to their ``init_caches`` /
-    ``init_paged_caches`` state in place, so the tensors a captured
-    decode graph reads stay the same ones."""
+    """Put caches (contiguous or paged, states included) back to their
+    ``init_caches`` / ``init_paged_caches`` state in place, so the tensors
+    a captured decode graph reads stay the same ones."""
     for c in caches["layers"]:
         reset_attn_cache(c)
     caches["pos"].zero_()
@@ -306,23 +403,32 @@ def cache_reset_slot(cfg: ModelConfig, caches: Dict, slot: int) -> Dict:
 def cache_claim_slot_paged(cfg: ModelConfig, caches: Dict, req_caches: Dict,
                            slot: int, pages: torch.Tensor,
                            write_mask: torch.Tensor) -> Dict:
-    """Paged twin of ``cache_claim_slot``, in place: each layer maps
+    """Paged twin of ``cache_claim_slot``, in place: each paged layer maps
     ``pages`` into its block-table row and writes the request's
     contiguous prefilled chunks into the pages ``write_mask`` marks as
-    this claim's (``kvcache.paged_claim``).  Returns ``caches``."""
+    this claim's (``kvcache.paged_claim``); a ring or a state (the same
+    length in the request's cache) claims its slot row as before.
+    Returns ``caches``."""
     for c, r in zip(caches["layers"], req_caches["layers"]):
-        paged_claim(c, r, slot, pages, write_mask)
+        if is_paged(c):
+            paged_claim(c, r, slot, pages, write_mask)
+        else:
+            claim_slot(c, r, slot)
     caches["pos"][slot].copy_(req_caches["pos"][0])
     return caches
 
 
 def cache_reset_slot_paged(cfg: ModelConfig, caches: Dict, slot: int
                            ) -> Dict:
-    """Paged twin of ``cache_reset_slot``, in place: each layer only
+    """Paged twin of ``cache_reset_slot``, in place: each paged layer only
     unmaps the slot's block-table row (page contents are rewritten on the
-    next claim), and the slot's position returns to 0."""
+    next claim), a ring or a state clears its row, and the slot's
+    position returns to 0."""
     for c in caches["layers"]:
-        paged_reset(c, slot)
+        if is_paged(c):
+            paged_reset(c, slot)
+        else:
+            reset_slot(c, slot)
     caches["pos"][slot] = 0
     return caches
 
@@ -344,10 +450,11 @@ def mask_cache_padding(cfg: ModelConfig, caches: Dict, plen: torch.Tensor
     """Invalidate cache entries written by right-padded prefill tokens:
     position planes at positions >= plen become -1 and the per-row decode
     position is pinned to plen (in place).  A paged layer's pool-shaped
-    ``pos`` plane is left alone."""
+    ``pos`` plane is left alone, and a recurrent state has no position
+    plane (only all-global plans are padded)."""
     lim = plen.to(torch.int32)[:, None]
     for c in caches["layers"]:
-        if not is_paged(c):
+        if "pos" in c and not is_paged(c):
             c["pos"].masked_fill_(c["pos"] >= lim, -1)
     caches["pos"].copy_(plen)
     return caches
@@ -412,10 +519,11 @@ def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, mixer: str,
     v = torch.einsum("bsd,dhk->bshk", x, ap["wv"])
     if "bq" in ap:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    theta = (cfg.rope_local_theta if mixer == "local"
-             and cfg.rope_local_theta else cfg.rope_theta)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    if cfg.rope_kind != "none":
+        theta = (cfg.rope_local_theta if mixer == "local"
+                 and cfg.rope_local_theta else cfg.rope_theta)
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
     if ctx.mode == "step" and is_paged(cache):
         # paged: write through the block table, then read the pool through
         # it (block-table contents are data, so one captured decode graph
@@ -437,14 +545,84 @@ def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, mixer: str,
     return torch.einsum("bshk,hkd->bsd", out, ap["wo"])
 
 
+def _keep_state(cache, new_state, ctx: ExecContext) -> None:
+    """Write a recurrent mixer's new state into its cache in place (the
+    tensors a captured decode graph reads stay the same ones)."""
+    if cache is not None and ctx.mode in ("prefill", "step"):
+        for name, t in new_state.items():
+            cache[name].copy_(t)
+
+
+def _recurrent(x, rp, ctx: ExecContext, cache):
+    """The RG-LRU block on the normed input; the state carries in from
+    the cache at prefill and decode."""
+    if ctx.mode == "step":
+        y, new_state = rglru_step(x, rp, cache)
+    else:
+        carry = ctx.mode == "prefill" and cache is not None
+        y, new_state = rglru_seq(x, rp, h0=cache["h"] if carry else None,
+                                 conv_state=cache["conv"] if carry
+                                 else None)
+    _keep_state(cache, new_state, ctx)
+    return y
+
+
+def _mlstm_block(x, p, cfg: ModelConfig, ctx: ExecContext, cache):
+    mp = p["mlstm"]
+    h_in = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    u, z = torch.chunk(torch.einsum("bsd,de->bse", h_in, mp["w_up"]), 2,
+                       dim=-1)
+    q = torch.einsum("bse,ehk->bshk", u, mp["wq"])
+    k = torch.einsum("bse,ehk->bshk", u, mp["wk"])
+    v = torch.einsum("bse,ehk->bshk", u, mp["wv"])
+    gates = torch.einsum("bse,eg->bsg", u.float(), mp["w_if"]) + mp["b_if"]
+    nh = cfg.num_heads
+    log_i = gates[..., :nh]
+    log_f = torch.nn.functional.logsigmoid(gates[..., nh:])
+    if ctx.mode == "step":
+        h, new_state = mlstm_step(q, k, v, log_i, log_f, cache)
+    else:
+        h, new_state = mlstm_chunkwise(
+            q, k, v, log_i, log_f,
+            cache if ctx.mode == "prefill" else None)
+    _keep_state(cache, new_state, ctx)
+    b, s = x.shape[0], x.shape[1]
+    h = rms_norm(h.reshape(b, s, -1), mp["out_norm"], cfg.norm_eps) \
+        * silu(z)
+    return x + torch.einsum("bse,ed->bsd", h, mp["w_down"])
+
+
+def _slstm_block(x, p, cfg: ModelConfig, ctx: ExecContext, cache):
+    sp = p["slstm"]
+    h_in = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    pre = torch.einsum("bsd,dghk->bsghk", h_in, sp["w_zifo"]) + sp["b_zifo"]
+    state = cache if ctx.mode in ("prefill", "step") else None
+    h, new_state = slstm_seq(pre, sp, state)
+    _keep_state(cache, new_state, ctx)
+    b, s = x.shape[0], x.shape[1]
+    x = x + rms_norm(h.reshape(b, s, -1), sp["out_norm"], cfg.norm_eps)
+    # the block's own gated FFN, uncompressed
+    hf = rms_norm(x, sp["ffn_norm"], cfg.norm_eps)
+    return x + ffn_apply(hf, sp["ffn"], cfg.act, True)
+
+
 def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
                 positions, cache, plan_row=None):
     """One transformer layer.  Returns (x, aux, routing info, MoE input);
-    a dense layer gives no aux, no routing info and no MoE input.  The
-    MoE input is the (T, d) f32 normed FFN input when
-    ``ctx.collect_moe_inputs`` is set, else None."""
+    a dense, recurrent or xLSTM layer gives no aux, no routing info and no
+    MoE input.  The MoE input is the (T, d) f32 normed FFN input when
+    ``ctx.collect_moe_inputs`` is set, else None.  A recurrent or xLSTM
+    layer writes its new state into ``cache`` in place."""
+    if spec.mixer == "mlstm":
+        return _mlstm_block(x, p, cfg, ctx, cache), {}, None, None
+    if spec.mixer == "slstm":
+        return _slstm_block(x, p, cfg, ctx, cache), {}, None, None
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    y = _attn_layer(h, p["attn"], cfg, ctx, spec.mixer, positions, cache)
+    if spec.mixer == "recurrent":
+        y = _recurrent(h, p["rglru"], ctx, cache)
+    else:
+        y = _attn_layer(h, p["attn"], cfg, ctx, spec.mixer, positions,
+                        cache)
     if cfg.post_attn_norm:
         y = rms_norm(y, p["post_norm"], cfg.norm_eps)
     x = x + y

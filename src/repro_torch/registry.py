@@ -6,7 +6,8 @@ from typing import Callable, Dict
 from .config import ModelConfig
 from .configs import (deepseek_moe_16b, gemma3_1b, gemma3_27b,
                       llama3_2_3b, llama4_scout_17b_a16e, mixtral_8x7b,
-                      mixtral_8x22b, qwen2_7b, qwen3_moe_30b_a3b)
+                      mixtral_8x22b, qwen2_7b, qwen3_moe_30b_a3b,
+                      recurrentgemma_9b, xlstm_125m)
 from .configs.base import reduce_config
 
 REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
@@ -19,6 +20,8 @@ REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "qwen2-7b": qwen2_7b.config,
     "mixtral-8x22b": mixtral_8x22b.config,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e.config,
+    "recurrentgemma-9b": recurrentgemma_9b.config,
+    "xlstm-125m": xlstm_125m.config,
 }
 
 

@@ -6,11 +6,11 @@ mesh).
 
 Prompts right-pad to a power-of-two length and the padded cache slots
 are invalidated afterwards (``mask_cache_padding``), so padded decode
-matches unpadded decode; a plan with local (sliding-window) layers, whose
-ring caches cannot invalidate padding, prefills each prompt at its exact
-length instead.  Cache lengths round up to powers of two.  Each
-(batch, cache length) bucket keeps one resident cache set, reset in place
-before every prefill into it.
+matches unpadded decode; a plan with local (sliding-window) layers or
+recurrent / xLSTM states, which cannot invalidate padding, prefills each
+prompt at its exact length instead.  Cache lengths round up to powers of
+two.  Each (batch, cache length) bucket keeps one resident cache set,
+reset in place before every prefill into it.
 
 The JAX package's decode loop is a ``lax.scan`` compiled once per bucket.
 Its counterpart here, on a CUDA engine, is one decode step captured as a
@@ -33,7 +33,8 @@ plan, copied into the decode graph's plan buffer.
 With ``page_size`` the slot caches are paged (``serve/paging.py``,
 ``models/kvcache.py``): one page pool per layer sized to the workload's
 largest concurrent needs, a block table per slot, pages allocated per
-request in page quanta; ``prefix_cache`` maps the full prompt pages two
+request in page quanta (local rings and recurrent states stay
+slot-indexed beside the pools); ``prefix_cache`` maps the full prompt pages two
 requests share onto the same physical pages, so the shared span is
 prefilled once (the rest of the prompt by a suffix prefill over the
 seeded prefix).  Every write is in place, and one decode graph is
@@ -79,7 +80,7 @@ from ..models.kvcache import is_paged
 from ..models.transformer import (ExecContext, cache_claim_slot,
                                   cache_claim_slot_paged, cache_rollback,
                                   cache_reset_slot_paged, cache_seed_prefix,
-                                  has_local, init_caches,
+                                  all_global, init_caches,
                                   init_paged_caches, layer_specs,
                                   mask_cache_padding,
                                   reset_caches)
@@ -103,19 +104,10 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _graph_key(caches, plan) -> Tuple:
-    """A decode graph's key: (batch, cache length, with a plan) for
-    contiguous caches; for paged ones the envelope (slots, logical length
-    max_blocks * page_size, with a plan, pages, page size)."""
-    c = caches["layers"][0]
-    if is_paged(c):
-        n_pages, ps = c["k"].shape[:2]
-        return (c["block"].shape[0], c["block"].shape[1] * ps,
-                plan is not None, n_pages, ps)
-    # the longest layer's length: a local layer's ring is capped at the
-    # window, so rings alone do not tell two buckets apart
-    return (c["k"].shape[0], max(lc["k"].shape[1]
-                                 for lc in caches["layers"]),
-            plan is not None)
+    """A decode graph's key: the resident cache set it was captured on and
+    whether it takes a plan.  The graph holds that set, so the set's id
+    stays its own while the graph lives."""
+    return (id(caches), plan is not None)
 
 
 @dataclasses.dataclass
@@ -337,10 +329,10 @@ class ServeEngine:
         self.collect_router_trace = collect_router_trace and any(
             s.ffn == "moe" for s in layer_specs(cfg))
         # right-padded prefill is exact only when every layer attends over
-        # a full-length position-masked cache: a local layer's ring cannot
-        # invalidate padding afterwards, so such plans prefill each prompt
-        # at its exact length
-        self._pad_prompts = not has_local(cfg)
+        # a full-length position-masked cache: a local layer's ring or a
+        # recurrent state cannot invalidate padding afterwards, so such
+        # plans prefill each prompt at its exact length
+        self._pad_prompts = all_global(cfg)
         self._prefill_ctx = ExecContext(mode="prefill", quantized=quantized,
                                         exact_capacity=True,
                                         kernel_impl=kernel_impl)
@@ -385,8 +377,8 @@ class ServeEngine:
             torch.cuda.synchronize(self.device)
 
     def _pad_prompt(self, prompt_tokens: np.ndarray) -> np.ndarray:
-        """Right-pad prompts to their length bucket (id 0), on a plan
-        without local layers."""
+        """Right-pad prompts to their length bucket (id 0), on an
+        all-global plan."""
         b, plen = prompt_tokens.shape
         if not self._pad_prompts:
             return prompt_tokens
@@ -410,7 +402,8 @@ class ServeEngine:
     def _paged_bucket(self, num_slots: int, num_pages: int, page_size: int,
                       max_blocks: int) -> Dict:
         """The resident paged slot caches of an envelope, reset (allocated
-        at first use)."""
+        at first use): global layers paged, local rings and states
+        slot-indexed beside the pools."""
         key = (num_slots, num_pages, page_size, max_blocks)
         caches = self._paged_caches.get(key)
         if caches is None:
@@ -494,7 +487,7 @@ class ServeEngine:
                              self._step_ctx, plan=plan)
         return out._replace(logits=out.logits[:, 0])
 
-    def _capture(self, key: Tuple[int, int, bool], tokens: torch.Tensor,
+    def _capture(self, key: Tuple, tokens: torch.Tensor,
                  caches, plan: Optional[torch.Tensor]):
         """Run one eager decode step as the warm-up (it is the step's real
         result), then capture the same step on the same buffers as the
@@ -543,13 +536,8 @@ class ServeEngine:
             np.asarray(plan, np.int32)).to(self.device)
         key = _graph_key(caches, plan)
         g = self.graphs.get(key) if self.decode_graph else None
-        if g is not None:
-            if g.caches is not caches:
-                raise ValueError("a decode graph replays its bucket's "
-                                 "resident caches: pass the caches that "
-                                 "prefill returned")
-            if plan_t is not None:
-                g.plan.copy_(plan_t)
+        if g is not None and plan_t is not None:
+            g.plan.copy_(plan_t)
         trace = None
         if self.collect_router_trace:
             trace = torch.empty((max_new, self._n_moe, b, self.cfg.moe.top_k),
@@ -957,9 +945,6 @@ class ServeEngine:
             out, g = self._capture_verify(key, tokens, caches, logits,
                                           plan_t, u_acc, u_bonus)
             return SpecRound(*out, g.logits, time.perf_counter() - t0)
-        if g.caches is not caches:
-            raise ValueError("a verify graph replays its bucket's resident "
-                             "caches: pass the caches serve claimed into")
         g.tokens.copy_(tokens)
         if plan_t is not None:
             g.plan.copy_(plan_t)
@@ -1011,16 +996,18 @@ class ServeEngine:
 
     def _admit_paged(self, req: Request, pool: PagePool, caches, slot: int,
                      slot_pages: Dict[int, List[int]], *, max_blocks: int,
-                     page_size: int, use_prefix: bool):
+                     page_size: int, ring_len: int, use_prefix: bool):
         """Admit one request into the paged cache: map a page list (shared
         prefix pages first, fresh pages after), run its prefill (full, or
         suffix-only over a prefix seeded from the shared physical pages)
         and return (last-token logits, batch-1 request caches, the claim's
         ((max_blocks,) page ids, (max_blocks,) write mask), prefilled
-        tokens).  The page bookkeeping is host-side."""
+        tokens).  The page bookkeeping is host-side.  ``ring_len``: the
+        slot caches' local ring length (0 without local layers)."""
         ps = page_size
         plen = req.prompt_len
-        plen_pad = bucket_len(plen, PROMPT_BUCKET_MIN)
+        plen_pad = (bucket_len(plen, PROMPT_BUCKET_MIN)
+                    if self._pad_prompts else plen)
         need = -(-(plen_pad + req.max_new + 1) // ps)
         shared: List[int] = []
         hashes: List[bytes] = []
@@ -1040,8 +1027,9 @@ class ServeEngine:
         pages[:need] = page_list
         write_mask = np.zeros((max_blocks,), bool)
         write_mask[n_sh:need] = True     # shared pages are read-only
-        # request-cache length: the page-aligned prompt capacity
-        req_len = _round_up(plen_pad, ps)
+        # request-cache length: the page-aligned prompt capacity, raised to
+        # the slot caches' ring length so local layers claim row for row
+        req_len = max(_round_up(plen_pad, ps), _round_up(ring_len, ps))
         start = n_sh * ps
         if start > 0:
             seed = np.full((max_blocks,), -1, np.int32)
@@ -1133,9 +1121,11 @@ class ServeEngine:
         carries the acceptance rate, lookahead accuracy and the
         draft-overhead bytes.
 
-        On a plan with local (ring) layers ``spec_k`` raises
-        ``ValueError``, as the JAX engine does, and ``page_size``
-        ``NotImplementedError`` (ROADMAP A12)."""
+        On a plan that is not all global attention (local rings,
+        recurrent or xLSTM states) ``spec_k`` and ``prefix_cache`` raise
+        ``ValueError``, as the JAX engine does; ``page_size`` pages the
+        global layers and keeps rings and states slot-indexed beside the
+        pools (a plan without a global layer pages nothing)."""
         from ..offload.prefetch import LookaheadPrefetcher
         from ..offload.store import (offload_report, replay_decode_trace,
                                      replay_spec_round, snapshot_offload)
@@ -1190,6 +1180,10 @@ class ServeEngine:
         if paged:
             if ps & (ps - 1):
                 raise ValueError(f"page_size must be a power of two: {ps}")
+            if use_prefix and not self._pad_prompts:
+                raise ValueError("prefix_cache needs an all-global "
+                                 "attention plan (recurrent / ring states "
+                                 "cannot seed from reused pages)")
             if use_prefix and self._stream is not None:
                 raise ValueError("prefix_cache under expert streaming is "
                                  "unsupported (suffix prefill bypasses the "
@@ -1206,6 +1200,9 @@ class ServeEngine:
             caches = self._paged_bucket(num_slots, 1 + n_alloc, ps,
                                         max_blocks)
             pool = PagePool(1 + n_alloc, ps)
+            # the local rings' length, 0 without one
+            ring_len = max((c["k"].shape[1] for c in caches["layers"]
+                            if "k" in c and not is_paged(c)), default=0)
         else:
             # spec_k extra headroom: a verify pass may append up to spec_k
             # rejected positions past a slot's final token, and the ring
@@ -1248,6 +1245,7 @@ class ServeEngine:
                     lg, rc, pages, n_pre = self._admit_paged(
                         req, pool, caches, slot, slot_pages,
                         max_blocks=max_blocks, page_size=ps,
+                        ring_len=ring_len,
                         use_prefix=use_prefix)
                 else:
                     lg, rc = self._prefill_request(req, cache_len)

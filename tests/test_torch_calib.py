@@ -56,6 +56,7 @@ from repro_torch.registry import REGISTRY, get_config
 from repro_torch.serve import ServeEngine, synthetic_workload
 
 from test_calib import tiny_moe_cfg
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
 
 BITS = (2, 3, 4, 8)
 FINE_RANKS = (0, 4, 8, 16)

@@ -463,8 +463,12 @@ def _flash_args(dev, B, H, KVH, hd, S, kind, filled, seed):
 # of the cluster); S 8192; G 1 and G 8; hd 256 and hd 32 (the reduced
 # configs' width); Qwen3-MoE-30B-A3B's G 8 (32 / 4 heads) at serve's
 # (4, 512) and (4, 1024) buckets; Qwen2-7B's G 7 (28 / 4 heads, run by
-# the G 8 instantiation) and Gemma3-1B's (4 / 1 heads, hd 256) ring
-_FLASH_SHAPES = {"qwen2_g7": (4, 28, 4, 128, 512),
+# the G 8 instantiation) and Gemma3-1B's (4 / 1 heads, hd 256) ring;
+# RecurrentGemma-9B's G 16 (16 / 1 heads, hd 256: eight query-head groups
+# of 2) at its window, and G 9 (four groups of 2 and one of 1)
+_FLASH_SHAPES = {"rgemma_g16": (4, 16, 1, 256, 2048),
+                 "g9": (2, 18, 2, 128, 300),
+                 "qwen2_g7": (4, 28, 4, 128, 512),
                  "gemma3_1b": (4, 4, 1, 256, 512),
                  "qwen3_s512": (4, 32, 4, 128, 512),
                  "qwen3_s1024": (4, 32, 4, 128, 1024),
@@ -495,10 +499,11 @@ def test_flash_decode_kernel_matches_plain(dev, kind, window, filled, shape):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
-# Gemma3's local layers at decode (B, H, KVH, hd, window): a ring of
-# window slots, full and wrapped
+# Gemma3's and RecurrentGemma-9B's (G 16) local layers at decode (B, H,
+# KVH, hd, window): a ring of window slots, full and wrapped
 _GEMMA3_RINGS = {"gemma3_1b": (4, 4, 1, 256, 512),
-                 "gemma3_27b": (4, 32, 16, 128, 1024)}
+                 "gemma3_27b": (4, 32, 16, 128, 1024),
+                 "recurrentgemma_9b": (4, 16, 1, 256, 2048)}
 
 
 @pytest.mark.parametrize("shape", list(_GEMMA3_RINGS))
@@ -656,7 +661,7 @@ def _gathered(args):
 
 
 @pytest.mark.parametrize("ps", [8, 16, 32])
-@pytest.mark.parametrize("g", [1, 3, 4, 8])
+@pytest.mark.parametrize("g", [1, 3, 4, 8, 9, 16])
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 def test_paged_flash_decode_equals_gather_then_kernel(dev, kind, g, ps):
     """The block-table mode reads the pool in place and equals, bit for
@@ -757,7 +762,7 @@ def test_flash_decode_multi_query_equals_single_calls(dev, shape, kind, nq):
 
 @pytest.mark.parametrize("nq", [2, 4, 8])
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("g", [1, 4, 16])
 def test_paged_flash_decode_multi_query_equals_single_calls(dev, g, kind,
                                                             nq):
     """The multi-query mode over a page pool (page 16): bit-equal to
@@ -936,6 +941,18 @@ def test_quant_matmul_decode_gemma3_shapes(dev, proj, m):
     """The decode kernel at Gemma3-1B's projections (K 1152 = 18 pack
     blocks, K 6912 = 108), as the decode step runs them."""
     _decode_shape_case(dev, *_GEMMA3_1B[proj], m)
+
+
+# RecurrentGemma-9B's (w1/w3, then w2): K 4096 -> N 12288 and back
+_RECURRENTGEMMA = {"w1": (4096, 12288), "w2": (12288, 4096)}
+
+
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("proj", ["w1", "w2"])
+def test_quant_matmul_decode_recurrentgemma_shapes(dev, proj, m):
+    """The decode kernel at RecurrentGemma-9B's projections (K 4096 = 64
+    pack blocks, K 12288 = 192), as its decode step runs them."""
+    _decode_shape_case(dev, *_RECURRENTGEMMA[proj], m)
 
 
 def _decode_shape_case(dev, k, n, m):
@@ -1187,6 +1204,60 @@ def test_window_engine_graph_matches_eager(dev):
         np.testing.assert_array_equal(x.tokens, y.tokens)
         np.testing.assert_allclose(x.logprobs, y.logprobs, rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
+def test_stateful_engine_graph_matches_eager(dev, arch):
+    """Reduced RecurrentGemma-9B (2 recurrent layers and a local ring of
+    16, E = 1 stacks) and xLSTM-125M (an mLSTM and an sLSTM block):
+    ``generate`` with 21-token prompts through the decode graph gives the
+    eager loop's tokens and log-probs within 1e-5 (every state leaf is
+    written in place, so the replay reads and writes the graph's own
+    buffers); RecurrentGemma's eager loop runs flash-decode with a window
+    once per step (its one local layer).  A second bucket past the window
+    (cache 128 against 64) has resident caches of its own and captures
+    its own graph; ``serve`` (prompts of 11 and 27 tokens, contiguous and
+    at page 8) gives the eager serve's tokens."""
+    import dataclasses
+    from repro_torch.models.transformer import (compress_dense_params,
+                                                init_params)
+    from repro_torch.registry import get_config
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import Request
+    cfg = get_config(arch, reduced=True)
+    params = init_params(cfg, seed=0, dtype=torch.float32)
+    quantized = arch == "recurrentgemma-9b"
+    if quantized:
+        params, cfg = compress_dense_params(
+            params, cfg, dataclasses.replace(cfg.quant, rank_budget=16))
+    graph = ServeEngine(cfg, params, quantized=quantized)
+    eager = ServeEngine(cfg, params, quantized=quantized, decode_graph=False)
+    prompts = _prompts(cfg, 3, 21)
+    a = graph.generate(prompts, 20)
+    before = fd.window_launches.n
+    b = eager.generate(prompts, 20)
+    assert fd.window_launches.n - before == (20 if quantized else 0)
+    assert a.logprobs.shape == (3, 20) and np.isfinite(a.logprobs).all()
+    _assert_same_generation(a, b)
+    assert graph.num_graphs == 1
+    long = _prompts(cfg, 3, 50, seed=1)
+    _assert_same_generation(graph.generate(long, 20),
+                            eager.generate(long, 20))
+    assert graph.num_graphs == 2
+    rng = np.random.default_rng(2)
+    reqs = [rng.integers(2, cfg.vocab_size, (n,)).astype(np.int32)
+            for n in (11, 27, 27, 11, 27, 11)]
+
+    def serve(eng, **kw):
+        return eng.serve([Request(uid=i, tokens=t, max_new=10)
+                          for i, t in enumerate(reqs)], num_slots=2,
+                         chunk=4, seed=0, **kw)
+    for kw in ({}, {"page_size": 8}):
+        for x, y in zip(serve(graph, **kw).results,
+                        serve(eager, **kw).results):
+            np.testing.assert_array_equal(x.tokens, y.tokens)
+            np.testing.assert_allclose(x.logprobs, y.logprobs, rtol=1e-5,
+                                       atol=1e-5)
 
 
 @pytest.mark.parametrize("kind", ["moe", "dense"])

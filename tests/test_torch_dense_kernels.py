@@ -30,6 +30,8 @@ from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.models.attention import decode_attention as t_decode
 from repro_torch.models.ffn import ffn_apply, ffn_apply_quantized
 
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
+
 # the JAX package's own tolerance between its oracle and its Pallas kernel
 # (tests/test_kernels_quant_matmul.py): f32 sums in another order
 TOL = dict(rtol=1e-4, atol=1e-3)

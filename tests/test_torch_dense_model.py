@@ -37,6 +37,8 @@ from repro_torch.models.transformer import (ExecContext,
 from repro_torch.registry import get_config
 from repro_torch.serve.engine import ServeEngine
 
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
+
 ARCH = "llama3.2-3b"
 # f32 on both sides; sums run in another order (einsum paths, the
 # factored dequant of the kernel's plain version)
@@ -77,8 +79,11 @@ def test_llama_layers_are_dense_global():
     assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings) == \
         (3072, 24, 8, 128, 8192, 128_256, True)
-    with pytest.raises(NotImplementedError, match="recurrent"):
-        layer_specs(dataclasses.replace(cfg, block_pattern=("recurrent",)))
+    # cross-attention (an encoder config) is still unported
+    from repro_torch.config import EncoderConfig
+    with pytest.raises(NotImplementedError, match="encoder.*ROADMAP A12"):
+        layer_specs(dataclasses.replace(
+            cfg, encoder=EncoderConfig(2, 3072, 24, 8192, 24)))
 
 
 def test_bridge_carries_dense_ffn_and_e1_stacks():

@@ -18,6 +18,8 @@ from repro.serve.engine import bucket_len as j_bucket_len
 from repro_torch.bridge import params_from_jax
 from repro_torch.serve.engine import ServeEngine, bucket_len
 
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
+
 _CACHE = {}
 
 

@@ -26,6 +26,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quant_matmul as tqm
 from repro_torch.models.attention import decode_attention as t_decode
 
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
+
 TOL = dict(rtol=1e-4, atol=1e-3)      # tests/test_fused_kernel.py:28
 _STACKS = {}
 
@@ -366,6 +368,25 @@ def test_flash_geometry_mirrors_the_kernel(b, kvh, s, sms):
     # from the slice's 512; f32 hd 128 takes 4 slots per warp tile
     assert tfd.slots_per_warp(128, 4) == 4
     assert tfd.launch_geometry(32, 512, 4, lambda cl: 264 // cl) == 8
+
+
+@pytest.mark.parametrize("g", range(1, 17))
+def test_group_splits_mirror_the_kernel(g):
+    """A kv head's G query heads split into query-head groups as
+    ``csrc/flash_decode.cu`` splits them (``group_heads``, ``splits_of``,
+    ``kMaxGroup``): every group holds at most 8 heads (the largest
+    instantiation), the groups cover G with none empty, and the wrapper's
+    ``group_splits`` gives the kernel's count of block rows."""
+    src = (Path(tfd.__file__).parent / "csrc" / "flash_decode.cu").read_text()
+    assert tfd.MAX_GROUP == int(re.search(
+        r"constexpr int kMaxGroup = (\d+);", src).group(1))
+    m = re.search(r"inline int group_heads\(int G\) \{ return G <= (\d+) \? "
+                  r"G : (\d+); \}", src)
+    one, wide = int(m.group(1)), int(m.group(2))
+    heads = g if g <= one else wide
+    splits = -(-g // heads)
+    assert tfd.group_splits(g) == splits
+    assert heads <= 8 and (splits - 1) * heads < g <= splits * heads
 
 
 def test_moe_dispatch_matches_jax_and_counts_rows():

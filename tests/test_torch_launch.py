@@ -21,6 +21,8 @@ from repro_torch.models.transformer import (apply_compressed_stacks,
 from repro_torch.registry import get_config
 from repro_torch.serve import ServeEngine, synthetic_workload
 
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
+
 ARCH = "mixtral-8x7b"
 SERVE = ["--arch", ARCH, "--device", "cpu", "--offload", "--requests", "6",
          "--slots", "2", "--chunk", "4", "--max-new", "6",

@@ -26,6 +26,8 @@ from repro_torch.models.transformer import (ExecContext, init_caches,
 from repro_torch.registry import get_config
 from repro_torch.serve.engine import ServeEngine
 
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # f32 on both sides; sums run in another order (einsum paths, the
 # factored dequant of the kernel's plain version)
@@ -47,7 +49,8 @@ def _models():
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama3.2-3b",
                                   "deepseek-moe-16b", "qwen3-moe-30b-a3b",
                                   "gemma3-1b", "gemma3-27b", "qwen2-7b",
-                                  "mixtral-8x22b", "llama4-scout-17b-a16e"])
+                                  "mixtral-8x22b", "llama4-scout-17b-a16e",
+                                  "recurrentgemma-9b", "xlstm-125m"])
 def test_config_copy_matches_jax(arch):
     for reduced in (True, False):
         _check_config_copy(j_get_config(arch, reduced=reduced),
@@ -198,7 +201,9 @@ def test_port_imports_neither_jax_nor_repro():
                 "offload/prefetch.py", "offload/cache.py",
                 "data/synthetic.py", "calib/stats.py", "calib/allocate.py",
                 "calib/artifact.py", "checkpoint/artifact.py",
-                "launch/compress.py", "launch/serve.py"):
+                "launch/compress.py", "launch/serve.py",
+                "models/rglru.py", "models/xlstm.py",
+                "configs/recurrentgemma_9b.py", "configs/xlstm_125m.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         for name in _imports(f):

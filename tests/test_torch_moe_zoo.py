@@ -31,6 +31,8 @@ from repro_torch.models.transformer import (ExecContext, init_caches,
 from repro_torch.registry import get_config
 from repro_torch.serve.engine import ServeEngine
 
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
+
 # f32 on both sides: sums in another order (the limit of test_torch_model.py)
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 # bf16: two bf16 steps of a log-prob of magnitude 4..8, with no relative

@@ -21,6 +21,7 @@ from repro_torch.offload import prefetch as t_prefetch
 from repro_torch.offload import store as t_store
 
 from test_serve_scheduler import compress, moe_cfg
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
 
 
 @pytest.fixture(scope="module")

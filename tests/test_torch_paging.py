@@ -41,6 +41,7 @@ from repro_torch.serve.scheduler import Request
 
 from test_serve_scheduler import compress, moe_cfg
 from test_torch_serve import port_moe_cfg
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
 
 LP_TOL = dict(rtol=1e-4, atol=1e-4)
 SIDES = ("jax", "torch")

@@ -19,6 +19,8 @@ from repro_torch.core import hqq as thqq
 from repro_torch.core import quantize as tq
 from repro_torch.core.pipeline import compress_expert_stack as t_compress
 
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
+
 # repro.core re-exports functions named like its modules; load the modules
 jhqq = importlib.import_module("repro.core.hqq")
 jq = importlib.import_module("repro.core.quantize")

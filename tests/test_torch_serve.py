@@ -38,6 +38,7 @@ from repro_torch.serve import controller as t_controller
 from repro_torch.serve import scheduler as t_sched
 
 from test_serve_scheduler import compress, moe_cfg
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
 
 LP_TOL = dict(rtol=1e-4, atol=1e-4)
 SIDES = ("jax", "torch")

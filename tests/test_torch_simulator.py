@@ -29,6 +29,7 @@ from repro_torch.serve import router_trace
 
 from test_serve_scheduler import compress, moe_cfg
 from test_torch_serve import port_moe_cfg
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
 
 POLICIES = ("fp16", "quant", "ours", "ours_adaptive", "fp16_ndp",
             "quant_ndp", "ours_ndp", "ours_adaptive_ndp")

@@ -49,6 +49,8 @@ from repro_torch.serve.speculative import (DraftModelDrafter, NGramDrafter,
                                            accept_drafts, mask_banned,
                                            sample_uniform)
 
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
+
 E = 8
 MAX_NEW = 8
 LP_TOL = dict(rtol=1e-4, atol=1e-4)

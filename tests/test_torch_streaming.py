@@ -47,6 +47,7 @@ from repro_torch.offload import staging as t_staging
 from repro_torch.serve import ServeEngine
 
 from test_streaming_oracle import moe_cfg, prompts
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
 
 E = 8
 MAX_NEW = 6

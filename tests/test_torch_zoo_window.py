@@ -40,11 +40,12 @@ from repro_torch.models.layers import activation
 from repro_torch.models.model import embed_tokens
 from repro_torch.models.transformer import (ExecContext, LayerSpec,
                                             apply_layer, init_caches,
-                                            init_paged_caches, init_params,
-                                            layer_specs)
+                                            init_params, layer_specs)
 from repro_torch.registry import get_config
 from repro_torch.serve.engine import ServeEngine, _graph_key
 from repro_torch.serve.scheduler import Request
+
+import torch_cpu  # noqa: F401  (one intra-op thread per worker)
 
 # f32 on both sides, sums in another order (test_torch_model.py's limit)
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -308,35 +309,48 @@ def test_moe_configs_generate_matches_jax(arch):
 
 def test_local_plan_raises_for_speculation_and_paging():
     """Speculation on a plan with ring layers raises JAX's ``ValueError``
-    (a ring cannot roll back a rejected draft); paging raises
-    ``NotImplementedError`` naming ROADMAP A12, from ``serve`` and from
-    ``init_paged_caches``.  An all-global plan pages as before."""
-    cfg = get_config("gemma3-1b", reduced=True)
-    eng = ServeEngine(cfg, init_params(cfg, 0, torch.float32, "cpu"),
-                      device="cpu")
+    (a ring cannot roll back a rejected draft).  Paging a local plan
+    serves: reduced Gemma3-1B at page 8 (its global layer paged, its 5
+    rings of 16 slot-indexed beside the pool), 3 requests of 11 and 27
+    tokens on 2 slots, equals its contiguous serve (tokens and log-probs
+    within 1e-4) and captures nothing on the CPU."""
+    eng = _port_engine("gemma3-1b")
     reqs = [Request(uid=0, tokens=np.arange(2, 22, dtype=np.int32),
                     max_new=4)]
     with pytest.raises(ValueError, match="local-ring states cannot roll"):
         eng.serve(reqs, spec_k=2, drafter="ngram")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        eng.serve(reqs, page_size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        init_paged_caches(cfg, 2, 9, 16, 4, torch.float32, device="cpu")
-    glob = dataclasses.replace(cfg, block_pattern=("global",))
-    c = init_paged_caches(glob, 2, 9, 16, 4, torch.float32, device="cpu")
-    assert len(c["layers"]) == glob.num_layers
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(2, 512, (n,)).astype(np.int32)
+               for n in (11, 27, 11)]
+
+    def run(**kw):
+        return eng.serve([Request(uid=i, tokens=p, max_new=6)
+                          for i, p in enumerate(prompts)],
+                         num_slots=2, chunk=4, seed=0, **kw)
+    paged, contiguous = run(page_size=8), run()
+    assert paged.page_report is not None and contiguous.page_report is None
+    for a, b in zip(paged.results, contiguous.results):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        np.testing.assert_allclose(a.logprobs, b.logprobs, **F32_TOL)
+    slot_caches = next(iter(eng._paged_caches.values()))
+    assert [c["k"].shape[1] for c in slot_caches["layers"]] == [16] * 5 + [8]
+    assert eng.num_graphs == 0
 
 
 def test_graph_key_tells_ring_buckets_apart():
     """Two cache buckets whose local rings are both capped at the window
-    still get their own decode-graph keys (the global layers' lengths
-    differ)."""
+    still get their own resident caches and decode-graph keys; a bucket
+    asked for again keys as before."""
     cfg = get_config("gemma3-1b", reduced=True)
-    a = init_caches(cfg, 2, 64, torch.float32, device="cpu")
-    b = init_caches(cfg, 2, 128, torch.float32, device="cpu")
+    eng = ServeEngine(cfg, init_params(cfg, 0, torch.float32, "cpu"),
+                      device="cpu")
+    a = eng._bucket_caches(2, 64)
+    b = eng._bucket_caches(2, 128)
     assert a["layers"][0]["k"].shape[1] == b["layers"][0]["k"].shape[1] == 16
-    assert _graph_key(a, None) == (2, 64, False)
-    assert _graph_key(b, None) == (2, 128, False)
+    assert [c["k"].shape[1] for c in b["layers"]] == [16] * 5 + [128]
+    assert _graph_key(a, None) == (id(a), False)
+    assert _graph_key(a, None) != _graph_key(b, None)
+    assert _graph_key(eng._bucket_caches(2, 64), None) == _graph_key(a, None)
 
 
 def test_bf16_gelu_tanh_and_embed_scale_round_as_jax():

@@ -5,7 +5,9 @@ the registers and spills of the kernel's hd 128 instantiations, and runs
 to S 32768, each beside its bound, its achieved rate and SDPA, and one
 call's kernels by name) and, where the package has the block-table mode,
 ``chip_smoke.flash_paged_timing`` (paged against contiguous at one S and
-against gather + kernel).
+against gather + kernel) and, where the package takes G 16, the window
+mode at RecurrentGemma-9B's ring (B 4, H 16, KVH 1, hd 256, S 2048 =
+window; bf16 and f32) beside its bound and SDPA.
 
     python3 tools/flash_decode_timing.py                # this tree
     python3 tools/flash_decode_timing.py --src OTHER/src
@@ -56,6 +58,10 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as fd
     if hasattr(fd, "flash_decode_attention_paged"):
         cs.log(f"  paged: {cs.flash_paged_timing(dev, gen, flush)}")
+    if hasattr(fd, "group_splits"):
+        for kind in ("bf16", "f32"):
+            cs.log(f"  G 16 ring {kind}: " + str(cs.flash_window_timing(
+                dev, gen, flush, 4, 16, 1, 256, 2048, kind)))
     return 0
 
 
