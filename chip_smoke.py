@@ -173,6 +173,27 @@ Phases:
                 prefill-then-decode against one forward pass (LOGIT_TOL);
                 both mixed plans refuse prefix reuse and speculation
 
+ 15. train      training and the last of the model zoo, run after phase
+                14 (before phase 9): (a) ``train()`` on DeepSeek-MoE-16B at
+                full width, TRAIN_LAYERS deep (dense layer 0, 2 MoE layers),
+                f32, 8 steps of SyntheticLM batches of 4 x 1024 with the
+                chunked fused cross entropy and per-layer recomputation,
+                twice: batches drawn before the run, then train()'s own
+                draw inside each step (histories equal bit for bit), one
+                step profiled, the plain against the fused cross entropy;
+                (b) kill at
+                step 5 of 10 and resume on the reduced config (equal to
+                the uninterrupted run bit for bit, within RESUME_CPU_TOL
+                of the CPU's); (c) Whisper-base, no cut, f32, 1500 seeded
+                frames, 3-bit E = 1 decoder FFNs: make_prefill_step and 32
+                make_serve_step steps against impl='ref' (LOGIT_TOL),
+                launches exact (kernel 2 at G 1, hd 64; kernel 3 at 3
+                bits), one train step with the frames, both kernels timed
+                at its shapes; (d) Qwen2-VL-7B, QWEN2_VL_LAYERS deep, bf16,
+                a 12 x 16 image grid between text at M-RoPE positions,
+                against a bf16 'ref' run (LOGIT_TOL_BF16), and the
+                ServeEngine's text path = the step builders at t = h = w
+
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero without that last line; without a CUDA device it exits
@@ -532,6 +553,8 @@ ZOO_QMM = {"gemma3_1b": ((1152, 6912), (6912, 1152)),
            "gemma3_27b": ((5376, 21504), (21504, 5376)),
            "qwen2_7b": ((3584, 18944), (18944, 3584)),
            "recurrentgemma_9b": ((4096, 12288), (12288, 4096))}
+# Whisper-base's plain MLP (3-bit stacks of rank 16): w1, then w2
+ZOO_QMM_3BIT = {"whisper_base": ((512, 2048), (2048, 512))}
 # the MoE configs registered without a served cell: (E, top-k, top-n,
 # d_model, d_expert)
 ZOO_FUSED = {"llama4_scout": (16, 1, 1, 5120, 8192),
@@ -565,6 +588,24 @@ def zoo_kernel_cases(dev, gen) -> tuple:
                 qmm_worst = max(qmm_worst, mx)
                 log(f"  ok  {name}  max|diff| {mx:.3e}")
                 del args, got, ref
+    # Whisper-base's decoder FFN: 3 bits (a 2-bit and a 1-bit plane), rank
+    # 16, at M 1 and 4 (the decode kernel) and 256 (a 4 x 64 prefill, the
+    # tensor cores)
+    for K, N in ZOO_QMM_3BIT["whisper_base"]:
+        for M in (1, 4, 256):
+            args = qmm_case_inputs(gen, dev, M, K, N, 16, 3)
+            got = qm.quant_matmul(*args, bits=3, group_size=64,
+                                  require_kernel=True)
+            ref = qm.quant_matmul_plain(*args, bits=3, group_size=64)
+            name = (f"quant_matmul whisper_base M={M} K={K} N={N} bits=3 "
+                    f"R=16 path={qm.qmm_path(M)}")
+            if qm.qmm_path(M) == "splitk":
+                cs, kch = qm.decode_splits(dev, M, K, N, 16, 3)
+                name += f" cluster={cs}x{kch}"
+            mx = allclose_report(name, got, ref, **FUSED_TOL)
+            qmm_worst = max(qmm_worst, mx)
+            log(f"  ok  {name}  max|diff| {mx:.3e}")
+            del args, got, ref
     for model, (E, top_k, top_n, d, fe) in ZOO_FUSED.items():
         for K, N in ((d, fe), (fe, d)):
             for T in (4, 1024):
@@ -752,6 +793,10 @@ def kernel_phase(dev):
                     (4, 16, 1, 256, 2048, 2040, ("f32", "bf16", "int8"),
                      (None, 2048)),
                     (2, 18, 2, 128, 1000, 700, ("f32", "int8"), (None, 300))]
+    # Whisper-base's self-attention (G 1, hd 64: 8 / 8 heads) as phase 15
+    # serves it, f32 (and bf16), at S 128 and 2048, all valid and ragged
+    flash_cases += [(4, 8, 8, 64, S, filled, ("f32", "bf16"), (None,))
+                    for S in (128, 2048) for filled in (S, S * 3 // 4 + 1)]
     errs["flash_decode_attention"] = max(paged_kernel_cases(dev, gen),
                                          multi_query_cases(dev, gen))
     for B, H, KVH, hd, S, filled, kinds, windows in flash_cases:
@@ -3652,7 +3697,10 @@ def flash_window_timing(dev, gen, flush, B, H, KVH, hd, S, kind) -> dict:
 
 def qmm_stack_timing(dev, gen, flush, st, M: int, label: str) -> dict:
     """Kernel 3 on a compressed E = 1 stack at M tokens, every token
-    compensated, beside its plain version and its bound."""
+    compensated, beside its plain version and its bound: the f32 CUDA-core
+    bound on the decode path, the bf16 tensor-core bound (``tc_bound``)
+    where the wrapper takes the tensor cores, with the f32 figure kept
+    under ``bound_f32_ms`` as the prefill rows keep it."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
     qt = ops.stack_member(st, 0)
@@ -3669,17 +3717,24 @@ def qmm_stack_timing(dev, gen, flush, st, M: int, label: str) -> dict:
         *args, **kw), **FUSED_TOL)
     nb, ops_n = qmm_bytes_ops(M, K, N, qt.planes, st.pad_rank)
     bms, by = bound(nb, ops_n)
-    geo = "tensor cores"
+    out = dict(ms=_ms(f"quant_matmul {label}", kt),
+               plain_ms=_ms(f"quant_matmul {label} plain", pt),
+               bound_ms=bms, bound_by=by)
     if qm.qmm_path(M) == "splitk":
         cs, kch = qm.decode_splits(dev, M, K, N, st.pad_rank, qt.bits)
         geo = (f"{-(-M // qm.token_tile(M)) * -(-N // qm.QMM_BN)} clusters "
                f"of {cs} blocks x {kch} pack blocks")
+        note = f"bound f32 CUDA cores {bms:.4f} ms ({by}"
+    else:
+        tms, tby = tc_bound(nb, ops_n)
+        out.update(bound_ms=tms, bound_by=tby, bound_f32_ms=bms)
+        geo = "tensor cores"
+        note = (f"bound bf16 tensor cores x2 {tms:.4f} ms ({tby}), f32 "
+                f"CUDA cores {bms:.4f} ms ({by}")
     log(f"  quant_matmul {label} M={M} K={K} N={N} bits={qt.bits} "
         f"R={st.pad_rank} ({geo}): kernel {_fmt(kt)}; plain {_fmt(pt)}; "
-        f"bound {bms:.4f} ms ({by}; {nb / 1e6:.2f} MB)")
-    return dict(ms=_ms(f"quant_matmul {label}", kt),
-                plain_ms=_ms(f"quant_matmul {label} plain", pt),
-                bound_ms=bms, bound_by=by)
+        f"{note}; {nb / 1e6:.2f} MB, {ops_n / 1e9:.3f} GFLOP)")
+    return out
 
 
 def window_phase(dev, counters):
@@ -4013,6 +4068,551 @@ def stateful_phase(dev, counters, gemma):
         torch.cuda.empty_cache()
         log(f"  {name} took {time.perf_counter() - t0:.1f} s")
     return runs, served, {"quant_matmul": qmm}, window, gates
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training and the last of the model zoo (DeepSeek-MoE-16B's
+# train step, kill and resume; Whisper-base's encoder and cross-attention;
+# Qwen2-VL-7B's M-RoPE), run after phase 14 (before phase 9)
+# ---------------------------------------------------------------------------
+
+# the depth cuts: DeepSeek-MoE-16B's 28 layers to 3 (layer 0 dense and 2
+# MoE layers at full width: ~1.68e9 f32 parameters, ~34 GB with their
+# gradients, master copy and moments); Qwen2-VL-7B's 28 to 4, as Qwen2-7B
+# in phase 13 (its widths as published)
+TRAIN_LAYERS = 3
+QWEN2_VL_LAYERS = 4
+# Qwen2-VL's prompts: 32 text tokens, a 12 x 16 grid of image stub tokens
+# (Qwen2-VL's image-pad id), 32 text tokens
+VL_TEXT, VL_GRID, VL_IMAGE_ID = 32, (12, 16), 151655
+# fused (bf16 cotangents) against plain cross entropy at the train cell's
+# size: tests/test_fused_xent.py's limits
+XENT_LOSS_TOL, XENT_GRAD_REL = 1e-4, 2e-2
+# the kill-and-resume cell on the card against the same run on the CPU:
+# relative |dloss| per step
+RESUME_CPU_TOL = 1e-5
+
+
+class PrebuiltBatches:
+    """A ``SyntheticLM``'s batches drawn before the run, served by step as
+    ``train`` asks for them, so that a step's time leaves out the host's
+    draw (``train``'s default draws each batch inside the timed step)."""
+
+    def __init__(self, data, steps: int):
+        self._batches = [data.batch(s) for s in range(steps)]
+
+    def batch(self, step: int):
+        return self._batches[step]
+
+
+def mrope_positions(text_a: int, grid, text_b: int) -> np.ndarray:
+    """(3, S) Qwen2-VL rope index ([arXiv:2409.12191]; ``get_rope_index``
+    in HF transformers) of ``text_a`` text tokens, a ``grid`` (h, w) image
+    block, then ``text_b`` text tokens: text has t = h = w; the block has
+    t constant and h, w the grid offsets from the next free id; text
+    after the block resumes at the largest id + 1."""
+    gh, gw = grid
+    t = list(range(text_a))
+    h, w = list(t), list(t)
+    for r in range(gh):
+        for c in range(gw):
+            t.append(text_a)
+            h.append(text_a + r)
+            w.append(text_a + c)
+    nxt = max(t + h + w) + 1
+    for i in range(text_b):
+        t.append(nxt + i)
+        h.append(nxt + i)
+        w.append(nxt + i)
+    return np.asarray([t, h, w], np.int32)
+
+
+def history_line(h) -> str:
+    return " ".join(f"{x['step']}:{x['loss']:.6f}/{x['grad_norm']:.4f}"
+                    for x in h)
+
+
+def train_cell(dev) -> dict:
+    """(a) The trainer at full width: DeepSeek-MoE-16B cut to
+    TRAIN_LAYERS, f32, ``train()`` on SyntheticLM batches of (4, 1024),
+    TrainConfig(total_steps=8, warmup_steps=1, loss_chunk=512) (two
+    padded chunks), each layer recomputed in the backward pass.  Twice:
+    run 1 on batches drawn before it (the device's step), run 2 with
+    ``train``'s default data, which draws each batch inside the timed
+    step (what the CLI runs); every loss finite and the histories equal
+    bit for bit.  Then one step under the profiler, and REPRO_XENT=plain
+    against fused at this size."""
+    import dataclasses
+    import os
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models.model import lm_loss
+    from repro_torch.models.transformer import (ExecContext, init_params,
+                                                layer_specs)
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.registry import get_config
+    from repro_torch.train import train
+    from repro_torch.train.microbatch import value_and_grad
+    from repro_torch.tree import tree_leaves
+    full = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS)
+    B, S = 4, 1024
+    tcfg = TrainConfig(total_steps=8, warmup_steps=1, loss_chunk=512)
+    log(f"  config {cfg.name}: d_model {cfg.d_model}, {cfg.moe.num_experts} "
+        f"experts top-{cfg.moe.top_k} of {cfg.moe.d_expert}, "
+        f"{cfg.moe.num_shared_experts} shared, dense layer 0 (d_ff "
+        f"{cfg.d_ff}), vocab {cfg.vocab_size}; depth cut: "
+        f"{full.num_layers} -> {cfg.num_layers} layers "
+        f"{[s.ffn for s in layer_specs(cfg)]}; f32; batches {B} x {S}; "
+        f"{tcfg}")
+    t0 = time.perf_counter()
+    data = PrebuiltBatches(SyntheticLM(SyntheticLMConfig(
+        vocab_size=cfg.vocab_size, batch_size=B, seq_len=S,
+        seed=tcfg.seed)), tcfg.total_steps)
+    draw_s = (time.perf_counter() - t0) / tcfg.total_steps
+    log(f"  {tcfg.total_steps} batches drawn before run 1: "
+        f"{draw_s * 1e3:.1f} ms per batch on the host")
+    hists, peaks = [], []
+    n_params = 0
+    for run, run_data in enumerate((data, None)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train(cfg, tcfg, data=run_data, log_every=0,
+                    batch_shape=(B, S), device=dev)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        n_params = sum(t.numel() for t in tree_leaves(res.state.params))
+        hists.append(res.history)
+        log(f"  run {run + 1}: {time.perf_counter() - t0:.2f} s (init "
+            f"included), peak device memory {peaks[-1]:.2f} GiB; step:"
+            f"loss/grad-norm {history_line(res.history)}")
+        del res
+    for h in hists[0]:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"train: non-finite loss or grad norm at step {h['step']}")
+    key = [[(h["loss"], h["grad_norm"], h["lr"]) for h in hist]
+           for hist in hists]
+    if key[0] != key[1]:
+        fail(f"train: two runs differ: {key[0]} vs {key[1]}")
+    dts = [h["dt"] for h in hists[0][1:]]
+    step_s = float(np.median(dts))
+    dts_d = [h["dt"] for h in hists[1][1:]]
+    step_d = float(np.median(dts_d))
+    log(f"  train: the two runs' loss, grad-norm and lr histories equal bit "
+        f"for bit; {n_params / 1e9:.4f}e9 parameters; medians of steps "
+        f"2-{tcfg.total_steps}: batches drawn before (run 1) "
+        f"{step_s * 1e3:.1f} ms, {B * S / step_s:.1f} tokens/s (each "
+        f"{[round(d * 1e3, 1) for d in dts]}); train()'s default, the "
+        f"draw inside the step (run 2) {step_d * 1e3:.1f} ms, "
+        f"{B * S / step_d:.1f} tokens/s (each "
+        f"{[round(d * 1e3, 1) for d in dts_d]})")
+    # one step under the profiler, from a fresh state
+    step_fn, _ = make_train_step(cfg, tcfg, device=dev)
+    params = init_params(cfg, tcfg.seed, torch.float32, dev)
+    state = TrainState(params, adamw_init(params))
+    state, _ = step_fn(state, data.batch(0))
+    kernels, wall = profiled(lambda: step_fn(state, data.batch(1)))
+    busy = sum(ms for _, ms in kernels)
+    log(f"  train step profile: wall {wall * 1e3:.1f} ms with the profiler "
+        f"on, device busy {busy:.1f} ms (sum of kernels), idle share "
+        f"{max(0.0, 1 - busy / (wall * 1e3)):.3f}, {len(kernels)} kernels; "
+        f"top 8 by device time:")
+    log_top(kernels, 1, "step")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # fused against plain cross entropy at this size, same parameters
+    ctx = ExecContext(mode="train", remat=True)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in data.batch(0).items()}
+    vg = value_and_grad(lambda p, b: lm_loss(p, b, cfg, ctx,
+                                             loss_chunk=tcfg.loss_chunk))
+    out = {}
+    for mode in ("plain", "fused"):
+        os.environ["REPRO_XENT"] = mode
+        try:
+            (loss, _), grads = vg(params, batch)
+        finally:
+            os.environ.pop("REPRO_XENT", None)
+        out[mode] = (float(loss), grads)
+    dl = abs(out["plain"][0] - out["fused"][0])
+    worst = max(float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+                for a, b in zip(tree_leaves(out["fused"][1]),
+                                tree_leaves(out["plain"][1])))
+    if not (dl < XENT_LOSS_TOL and worst < XENT_GRAD_REL):
+        fail(f"train: fused against plain cross entropy: |dloss| {dl:.3e} "
+             f"(limit {XENT_LOSS_TOL}), max |dgrad| / max |grad| "
+             f"{worst:.3e} (limit {XENT_GRAD_REL})")
+    log(f"  REPRO_XENT=plain vs fused: loss {out['plain'][0]:.6f} vs "
+        f"{out['fused'][0]:.6f} (|d| {dl:.3e}, limit {XENT_LOSS_TOL}), "
+        f"worst leaf max |dgrad| / max |grad| {worst:.3e} (limit "
+        f"{XENT_GRAD_REL})")
+    del out, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_s * 1e3, "tok_s": B * S / step_s,
+            "step_ms_default_data": step_d * 1e3,
+            "tok_s_default_data": B * S / step_d, "draw_ms": draw_s * 1e3,
+            "peak_gib": max(peaks), "busy_ms": busy, "wall_ms": wall * 1e3}
+
+
+def resume_cell(dev) -> None:
+    """(b) Kill and resume on the card: the reduced DeepSeek-MoE config,
+    a FailureInjector at step 5 of 10, then a run from the checkpoint
+    directory: its steps repeat the uninterrupted run's bit for bit, and
+    the uninterrupted run is within RESUME_CPU_TOL of the same run on the
+    CPU (the same initial parameters)."""
+    import tempfile
+    from repro_torch.config import TrainConfig
+    from repro_torch.models.transformer import init_params
+    from repro_torch.registry import get_config
+    from repro_torch.train import FailureInjector, train
+    from repro_torch.tree import tree_map
+    cfg = get_config("deepseek-moe-16b", reduced=True)
+    tcfg = TrainConfig(total_steps=10, checkpoint_every=5, warmup_steps=2,
+                       lr=1e-3, loss_chunk=0)
+    cpu_params = init_params(cfg, tcfg.seed, torch.float32, "cpu")
+
+    def init_on(d):
+        return lambda seed: tree_map(lambda t: t.to(d, copy=True),
+                                     cpu_params)
+    kw = dict(log_every=0, batch_shape=(4, 64))
+    t0 = time.perf_counter()
+    ref = train(cfg, tcfg, init_fn=init_on(dev), device=dev, **kw)
+    with tempfile.TemporaryDirectory() as ckpt:
+        try:
+            train(cfg, tcfg, init_fn=init_on(dev), device=dev,
+                  checkpoint_dir=ckpt, failure=FailureInjector(5), **kw)
+            fail("resume: the injected failure did not stop the run")
+        except RuntimeError as e:
+            if "injected failure at step 5" not in str(e):
+                raise
+        res = train(cfg, tcfg, init_fn=init_on(dev), device=dev,
+                    checkpoint_dir=ckpt, **kw)
+    if res.resumed_from != 5 or [h["step"] for h in res.history] != \
+            list(range(5, 10)):
+        fail(f"resume: resumed from {res.resumed_from}, steps "
+             f"{[h['step'] for h in res.history]}")
+    got = [(h["loss"], h["grad_norm"]) for h in res.history]
+    want = [(h["loss"], h["grad_norm"]) for h in ref.history[5:]]
+    if got != want:
+        fail(f"resume: resumed history {got} differs from the uninterrupted "
+             f"{want}")
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = train(cfg, tcfg, init_fn=init_on("cpu"), device="cpu", **kw)
+    worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(ref.history, cpu.history))
+    if not worst <= RESUME_CPU_TOL:
+        fail(f"resume: the card's losses are {worst:.3e} (relative) from "
+             f"the CPU's (limit {RESUME_CPU_TOL}): "
+             f"{history_line(ref.history)} vs {history_line(cpu.history)}")
+    log(f"  kill at step 5 of 10 and resume ({cfg.name}, batches 4 x 64): "
+        f"resumed from step 5, its 5 steps equal the uninterrupted run's "
+        f"bit for bit ({gpu_s:.2f} s for the three runs); against the "
+        f"CPU's run ({time.perf_counter() - t0:.2f} s) max relative "
+        f"|dloss| {worst:.3e} (limit {RESUME_CPU_TOL}); card "
+        f"{history_line(ref.history)}")
+
+
+def step_loop(dev, cfg, params, batch, caches, NEW, counters, impl="auto",
+              tokens=None, mrope_next=None):
+    """``make_prefill_step`` on ``batch``, then NEW ``make_serve_step``
+    steps (an eager loop), each fed its greedy token or ``tokens[:, i]``
+    (teacher forcing); ``mrope_next``: the first decode position of each
+    of M-RoPE's three streams (t = h = w from there on).  Returns (logits
+    of the prefill and each step, the tokens fed, wrapper launches in the
+    prefill and per step, prefill s, decode s)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    pre, _ = make_prefill_step(cfg, quantized=True, kernel_impl=impl,
+                               device=dev)
+    step, _ = make_serve_step(cfg, quantized=True, kernel_impl=impl,
+                              device=dev)
+    B = batch["tokens"].shape[0]
+
+    def counts():
+        return {n: c.n for n, c in counters.items()}
+    n0 = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = pre(params, caches, batch)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    n1 = counts()
+    outs, fed, per_step = [logits], [], []
+    t0 = time.perf_counter()
+    for i in range(NEW):
+        tok = (outs[-1].argmax(-1).to(torch.int32) if tokens is None
+               else tokens[:, i])
+        fed.append(tok)
+        sb = {"tokens": tok[:, None]}
+        if mrope_next is not None:
+            sb["mrope_pos"] = torch.full((3, B, 1), mrope_next + i,
+                                         dtype=torch.int32, device=dev)
+        a = counts()
+        lg, caches = step(params, caches, sb)
+        per_step.append({n: c.n - a[n] for n, c in counters.items()})
+        outs.append(lg)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    return (outs, torch.stack(fed, dim=1),
+            {n: n1[n] - n0[n] for n in n0}, per_step, pre_s, dec_s)
+
+
+def hold_to_ref(name: str, outs, ref_outs, fed, tol: float) -> None:
+    """Each step's logits within ``tol`` x max |ref logit|; the kernel
+    run's greedy token equal to the reference's argmax unless the two
+    tokens' reference logits are within ``tol`` x max |logit| (a
+    near-tie)."""
+    worst, ties = 0.0, 0
+    for i, (a, b) in enumerate(zip(outs, ref_outs)):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            fail(f"{name}: non-finite logits at step {i}")
+        scale = b.abs().amax(dim=-1)
+        d = (a - b).abs().amax(dim=-1)
+        worst = max(worst, float((d / scale).max()))
+        if bool((d > tol * scale).any()):
+            fail(f"{name}: step {i} max |dlogit| / max |logit| "
+                 f"{float((d / scale).max()):.3e} (limit {tol})")
+        if i < fed.shape[1]:
+            mine, theirs = fed[:, i].long(), b.argmax(-1)
+            for r in torch.nonzero(mine != theirs)[:, 0].tolist():
+                gap = float(b[r, theirs[r]] - b[r, mine[r]])
+                if gap > tol * float(scale[r]):
+                    fail(f"{name}: step {i} row {r}: token {int(mine[r])} "
+                         f"where the reference's argmax {int(theirs[r])} "
+                         f"leads by {gap:.3e}")
+                ties += 1
+    log(f"  {name} vs impl='ref' (teacher-forced): max |dlogit| / max "
+        f"|logit| {worst:.3e} (limit {tol}); tokens equal but for {ties} "
+        f"near-ties")
+
+
+def whisper_cell(dev, counters, flush, gen) -> tuple:
+    """(c) Whisper-base, no cut: 6 + 6 layers, d 512, 1500 frames, f32,
+    batch 4, frame embeddings from a seed, prompts of 64 tokens, decoder
+    FFNs as 3-bit E = 1 stacks of rank 16; make_prefill_step then 32
+    greedy make_serve_step steps (eager), against a kernel_impl='ref' run;
+    kernel 2 once per layer and step (G 1, hd 64) and kernel 3 twice per
+    layer and forward (3 bits); then one unquantized train step with the
+    frames, and the kernels timed at its shapes.  Returns (path entry,
+    {kernel: timing keys})."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models.transformer import (compress_dense_params,
+                                                init_caches, init_params)
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.registry import get_config
+    cfg = get_config("whisper-base")
+    e = cfg.encoder
+    B, P, NEW = 4, 64, 32
+    log(f"  config {cfg.name}: decoder {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads (G "
+        f"{cfg.q_per_kv}), hd {cfg.head_dim}, d_ff {cfg.d_ff} (plain "
+        f"{cfg.act} MLP), vocab {cfg.vocab_size}, sinusoidal positions, "
+        f"tied; encoder {e.num_layers} layers, d {e.d_model}, "
+        f"{e.source_len} frames; {cfg.quant.bits}-bit E = 1 stacks of "
+        f"rank {cfg.quant.rank_budget}; no cut; f32; {B} prompts x {P} "
+        f"tokens, {NEW} new")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, torch.float32, dev)
+    qparams, cfg_q = compress_dense_params(params, cfg)
+    torch.cuda.synchronize()
+    stacks = qparams["layers"][0]["ffn"]["stacks"]
+    log(f"  init + compression {time.perf_counter() - t0:.2f} s; layer-0 "
+        f"ranks { {k: st.ranks[0] for k, st in stacks.items()} }")
+    rng = np.random.default_rng(15)
+    prompts = torch.as_tensor(rng.integers(2, cfg.vocab_size, (B, P)),
+                              dtype=torch.int32, device=dev)
+    frames = torch.randn((B, e.source_len, e.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(15))
+    batch = {"tokens": prompts, "enc_embeds": frames}
+
+    def caches():
+        return init_caches(cfg_q, B, P + NEW, torch.float32, dev)
+    for c in counters.values():
+        c.reset()
+    outs, fed, pre_n, per_step, pre_s, dec_s = step_loop(
+        dev, cfg_q, qparams, batch, caches(), NEW, counters)
+    launches = {n: c.n for n, c in counters.items()}
+    want = {"flash_decode_attention": cfg.num_layers,
+            "quant_matmul": 2 * cfg.num_layers, "fused_expert_matmul": 0}
+    if any(s != want for s in per_step) or pre_n != {
+            **want, "flash_decode_attention": 0}:
+        fail(f"whisper: launches per step {per_step[0]} (prefill {pre_n}); "
+             f"expected {want} a step and kernel 3 only at prefill")
+    ref, _, _, _, _, _ = step_loop(dev, cfg_q, qparams, batch, caches(), NEW,
+                                   {}, impl="ref", tokens=fed)
+    hold_to_ref("whisper-base f32", outs, ref, fed, LOGIT_TOL)
+    # timed: the same loop again (kernels loaded, cross caches rewritten)
+    _, _, _, _, pre_s, dec_s = step_loop(dev, cfg_q, qparams, batch,
+                                         caches(), NEW, {})
+    log(f"  whisper-base: prefill (encoder + decoder, {B} x {P} tokens over "
+        f"{e.source_len} frames) {pre_s * 1e3:.2f} ms; eager decode "
+        f"{dec_s / NEW * 1e3:.3f} ms a step = {B * NEW / dec_s:.2f} tok/s; "
+        f"launches a step {per_step[0]}, prefill {pre_n}")
+    # one unquantized train step with the frames (the step updates the
+    # parameters in place, which qparams shares outside the FFNs: last)
+    del qparams, ref, outs
+    step_fn, _ = make_train_step(cfg, TrainConfig(total_steps=1,
+                                                  warmup_steps=1,
+                                                  loss_chunk=0),
+                                 device=dev)
+    t0 = time.perf_counter()
+    _, m = step_fn(TrainState(params, adamw_init(params)), batch)
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    if not (math.isfinite(loss) and gn > 0):
+        fail(f"whisper train step: loss {loss}, grad norm {gn}")
+    log(f"  whisper-base train step (unquantized, the frames through the "
+        f"encoder): loss {loss:.4f}, grad norm {gn:.4f}, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    del params, m, step_fn
+    # the kernels at Whisper's shapes: kernel 2 (4, 8, 8, 64) at S 128 and
+    # 2048, every slot valid, f32; kernel 3 at 3 bits on its stacks
+    flash, qmm = {}, {}
+    for S in (128, 2048):
+        args = flash_inputs(gen, dev, B, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.head_dim, S, S, "f32")
+        flash.update({f"whisper_s{S}_{k}": v for k, v in flash_timed(
+            args, None, "f32", flush, f"flash_decode whisper B={B} H=8 KVH=8"
+            f" (G=1) hd=64 S={S} f32").items() if k != "bound_by"})
+    for proj in ("w1", "w2"):
+        for M in (4, 256):
+            qmm.update({f"whisper_{proj}_m{M}_{k}": v for k, v in
+                        qmm_stack_timing(dev, gen, flush, stacks[proj], M,
+                                         f"whisper {proj}").items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"launches": launches, "eager_launches": launches,
+             "prefill_ms": pre_s * 1e3, "decode_tok_s": B * NEW / dec_s},
+            {"flash_decode_attention": flash, "quant_matmul": qmm})
+
+
+def qwen2_vl_cell(dev, counters) -> dict:
+    """(d) Qwen2-VL-7B at full width, depth cut to QWEN2_VL_LAYERS, bf16,
+    batch 4: prompts of 32 text tokens, a 12 x 16 grid of image stub
+    tokens and 32 text tokens at Qwen2-VL's rope-index positions; 32
+    decode steps at (3, B, 1) positions against a bf16 'ref' run
+    (LOGIT_TOL_BF16); then the ServeEngine's text path (no positions:
+    1-D RoPE) against the step builders at t = h = w positions, token for
+    token.  Returns the path entries."""
+    import dataclasses
+    from repro_torch.models.transformer import (compress_dense_params,
+                                                init_caches, init_params)
+    from repro_torch.registry import get_config
+    from repro_torch.serve.engine import ServeEngine, bucket_len
+    full = get_config("qwen2-vl-7b")
+    cfg = dataclasses.replace(full, num_layers=QWEN2_VL_LAYERS)
+    B, NEW = 4, 32
+    P = 2 * VL_TEXT + VL_GRID[0] * VL_GRID[1]
+    log(f"  config {cfg.name}: d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads (G {cfg.q_per_kv}), hd {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, M-RoPE (t, h, w "
+        f"sections 16, 24, 24), QKV biases (seeded nonzero); depth cut: "
+        f"{full.num_layers} -> {cfg.num_layers} layers; bf16; {B} prompts "
+        f"x {P} tokens ({VL_TEXT} text, a {VL_GRID[0]} x {VL_GRID[1]} "
+        f"image grid, {VL_TEXT} text), {NEW} new")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(29)
+    for lp in params["layers"]:
+        for b in ("bq", "bk", "bv"):
+            t = lp["attn"][b]
+            t.copy_(torch.randn(t.shape, generator=g, device=dev) * 0.5)
+    qparams, cfg_q = compress_dense_params(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    log(f"  init + compression {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(16)
+    toks = rng.integers(2, VL_IMAGE_ID, (B, P)).astype(np.int32)
+    toks[:, VL_TEXT:VL_TEXT + VL_GRID[0] * VL_GRID[1]] = VL_IMAGE_ID
+    prompts = torch.as_tensor(toks, device=dev)
+    pos3 = torch.as_tensor(mrope_positions(VL_TEXT, VL_GRID, VL_TEXT),
+                           device=dev)[:, None].expand(3, B, P).contiguous()
+    nxt = int(pos3.max()) + 1
+    L = bucket_len(P + NEW + 1)     # the engine's bucket for this run
+
+    def caches():
+        return init_caches(cfg_q, B, L, torch.bfloat16, dev)
+    for c in counters.values():
+        c.reset()
+    outs, fed, pre_n, per_step, pre_s, dec_s = step_loop(
+        dev, cfg_q, qparams, {"tokens": prompts, "mrope_pos": pos3},
+        caches(), NEW, counters, mrope_next=nxt)
+    launches = {n: c.n for n, c in counters.items()}
+    want = {"flash_decode_attention": cfg.num_layers,
+            "quant_matmul": 3 * cfg.num_layers, "fused_expert_matmul": 0}
+    if any(s != want for s in per_step) or pre_n != {
+            **want, "flash_decode_attention": 0}:
+        fail(f"qwen2-vl: launches per step {per_step[0]} (prefill {pre_n});"
+             f" expected {want} a step and kernel 3 only at prefill")
+    ref, _, _, _, _, _ = step_loop(dev, cfg_q, qparams,
+                                   {"tokens": prompts, "mrope_pos": pos3},
+                                   caches(), NEW, {}, impl="ref",
+                                   tokens=fed, mrope_next=nxt)
+    hold_to_ref("qwen2-vl-7b bf16 (grid positions)", outs, ref, fed,
+                LOGIT_TOL_BF16)
+    log(f"  qwen2-vl-7b: prefill {pre_s * 1e3:.2f} ms (first run); eager "
+        f"decode {dec_s / NEW * 1e3:.3f} ms a step = {B * NEW / dec_s:.2f} "
+        f"tok/s; launches a step {per_step[0]}, prefill {pre_n}")
+    del ref, outs
+    # the text path: the engine passes no positions (1-D RoPE), the step
+    # builders t = h = w; the same kernels on the same caches' length
+    flat = torch.arange(P, dtype=torch.int32, device=dev).expand(3, B, P) \
+        .contiguous()
+    _, flat_fed, _, _, _, _ = step_loop(
+        dev, cfg_q, qparams, {"tokens": prompts, "mrope_pos": flat},
+        caches(), NEW, {}, mrope_next=P)
+    for c in counters.values():
+        c.reset()
+    eng = ServeEngine(cfg_q, qparams, quantized=True, device=dev)
+    res = eng.generate(toks, max_new=NEW)
+    text_launches = {n: c.n for n, c in counters.items()}
+    if not np.array_equal(res.tokens, flat_fed.cpu().numpy()):
+        fail("qwen2-vl: ServeEngine's text path gave other tokens than the "
+             "step builders at t = h = w positions")
+    log(f"  qwen2-vl-7b text path: ServeEngine.generate (graph) = the step "
+        f"builders at t = h = w positions, {B} x {NEW} tokens equal; "
+        f"{res.decode_tokens_per_s:.2f} tok/s with the decode graph; "
+        f"launches {text_launches}")
+    del eng, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"qwen2_vl_7b": {"launches": launches, "eager_launches": launches,
+                            "prefill_ms": pre_s * 1e3,
+                            "decode_tok_s": B * NEW / dec_s},
+            "qwen2_vl_text": {"launches": text_launches,
+                              "eager_launches": {},
+                              "decode_tok_s": res.decode_tokens_per_s}}
+
+
+def train_phase(dev, counters) -> tuple:
+    """Phase 15: (a) the trainer at full width, (b) kill and resume, (c)
+    Whisper-base, (d) Qwen2-VL-7B.  Returns (served paths, {kernel:
+    timing keys}, the train cell's numbers)."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    t0 = time.perf_counter()
+    log("  -- (a) the trainer: DeepSeek-MoE-16B at full width")
+    tr = train_cell(dev)
+    log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("  -- (b) kill and resume")
+    resume_cell(dev)
+    log(f"  (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("  -- (c) Whisper-base")
+    wh, table = whisper_cell(dev, counters, flush, gen)
+    log(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("  -- (d) Qwen2-VL-7B")
+    served = {"whisper_base": wh, **qwen2_vl_cell(dev, counters)}
+    log(f"  (d) took {time.perf_counter() - t0:.1f} s")
+    return served, table, tr
 
 
 # ---------------------------------------------------------------------------
@@ -4564,6 +5164,27 @@ def main() -> int:
         swindow)
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s; rg-lru gate "
         f"matrices {gates}")
+
+    log("== phase 15: training (DeepSeek-MoE-16B at full width, kill and "
+        "resume), Whisper-base's encoder and cross-attention, Qwen2-VL-7B's "
+        "M-RoPE, before phase 9")
+    t15 = time.perf_counter()
+    tserved, ttable, trained = train_phase(dev, counters)
+    for name, sv in tserved.items():
+        for kname in ("quant_matmul", "flash_decode_attention"):
+            if sv["launches"].get(kname, 0) <= 0:
+                fail(f"{name}: {kname} was never launched: {sv['launches']}")
+    served.update(tserved)
+    for name, extra in ttable.items():
+        table[name].update(extra)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s; train step "
+        f"{trained['step_ms']:.1f} ms, {trained['tok_s']:.1f} tokens/s "
+        f"(batches drawn before), {trained['step_ms_default_data']:.1f} ms,"
+        f" {trained['tok_s_default_data']:.1f} tokens/s (drawn in the step,"
+        f" {trained['draw_ms']:.1f} ms per draw), peak "
+        f"{trained['peak_gib']:.2f} GiB")
 
     log("== phase 9: the entry points: compress CLI -> artifact -> serve "
         "CLI (Qwen3-MoE-30B-A3B)")

@@ -2,8 +2,11 @@
 
 The input is the JAX parameter tree with numpy (or any array-protocol)
 leaves, e.g. ``jax.tree.map(np.asarray, params)``: nested dicts, the
-``segments`` tuple of scanned layer groups, and compressed expert stacks
-as objects carrying the ``CompressedExpertStack`` fields.  Nothing here
+``segments`` tuple of scanned layer groups, an encoder tower whose
+leaves are stacked over its layers, and compressed expert stacks as
+objects carrying the ``CompressedExpertStack`` fields.  An optimizer
+state crosses as an object with ``step`` / ``master`` / ``m`` / ``v``
+(``opt_state_from_jax``).  Nothing here
 imports ``jax`` or ``repro``: stacks are read by attribute.  bfloat16
 leaves cross through a ``uint16`` view, as the JAX checkpoint writer
 stores them.
@@ -81,9 +84,26 @@ def _unstack_layers(segments) -> List[Dict[str, Any]]:
 
 def params_from_jax(tree, device=None) -> Dict[str, Any]:
     """The JAX package's parameter tree -> the port's parameter dict
-    (``layers`` list instead of scanned ``segments``)."""
+    (``layers`` list instead of scanned ``segments``; the encoder's
+    stacked layers as a list too)."""
     out = {k: tree_to_torch(v, device) for k, v in tree.items()
-           if k != "segments"}
+           if k not in ("segments", "encoder")}
     out["layers"] = [tree_to_torch(lp, device)
                      for lp in _unstack_layers(tree["segments"])]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        n = np.asarray(enc["layers"]["pre_norm"]).shape[0]
+        out["encoder"] = {
+            "layers": [tree_to_torch(_slice(enc["layers"], r), device)
+                       for r in range(n)],
+            "final_norm": to_torch(enc["final_norm"], device)}
     return out
+
+
+def opt_state_from_jax(state, device=None):
+    """A JAX ``OptState`` (numpy or jax leaves) -> the port's: the step
+    as a 0-d int32 tensor, master / m / v in the port's layout."""
+    from .optim.adamw import OptState
+    return OptState(to_torch(state.step, device),
+                    *(params_from_jax(getattr(state, f), device)
+                      for f in ("master", "m", "v")))

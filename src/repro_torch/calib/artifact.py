@@ -39,7 +39,6 @@ register_artifact_dataclass(CompressedExpertStack,
 # these, so it equals the hash the JAX package computes for the same
 # model and artifacts cross between the packages.
 REFERENCE_ONLY_FIELDS: Dict[str, Dict] = {
-    "ModelConfig": {"abs_pos_embed": False, "frontend": "none"},
     "MoEConfig": {"router_jitter": 0.0},
     "QuantConfig": {"scale_dtype": "f32", "compensate_shared": True,
                     "factor_group_size": 64},

@@ -1,2 +1,3 @@
-"""The artifact codec (``artifact.py``); training checkpoints are not
-ported."""
+"""Checkpointing: the structure-carrying artifact codec
+(``artifact.py``) and the training ``CheckpointManager`` built on it
+(``manager.py``)."""

@@ -56,10 +56,10 @@ def _npz_safe(t: torch.Tensor):
 def _npz_restore(arr: np.ndarray, dtype_name: str,
                  device: torch.device) -> torch.Tensor:
     if dtype_name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)) \
+        t = torch.from_numpy(np.require(arr, requirements="C").view(np.int16)) \
             .view(torch.bfloat16)
     elif arr.dtype.name == dtype_name:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.require(arr, requirements="C"))
     else:
         raise ValueError(f"artifact leaf stored as {arr.dtype.name} "
                          f"claims dtype {dtype_name!r}")

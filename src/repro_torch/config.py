@@ -1,8 +1,9 @@
 """Frozen-dataclass configuration for the PyTorch port.
 
-A copy of the subset of ``repro/config.py`` that the serving slices read
+A copy of the subset of ``repro/config.py`` that the port reads
 (``QuantConfig``, ``MoEConfig``, ``EncoderConfig``, ``ModelConfig``,
-``ControlConfig``, ``ServeConfig`` and ``RANK_BUCKETS``).  Field names
+``TrainConfig``, ``ControlConfig``, ``ServeConfig`` and
+``RANK_BUCKETS``).  Field names
 and defaults match the JAX package, so a config built here describes the
 same model as its JAX twin.
 """
@@ -60,8 +61,8 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class EncoderConfig:
-    """Encoder tower of an encoder-decoder model (the port refuses such a
-    config in ``layer_specs``: ROADMAP A12)."""
+    """Encoder tower of an encoder-decoder model (Whisper): its decoder
+    layers cross-attend to the tower's output."""
     num_layers: int
     d_model: int
     num_heads: int
@@ -71,7 +72,7 @@ class EncoderConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Decoder-only model description (the fields the port reads)."""
+    """Model description (the fields the port reads)."""
     name: str
     family: str
     num_layers: int
@@ -93,6 +94,7 @@ class ModelConfig:
     logit_softcap: float = 0.0
     post_attn_norm: bool = False
     scale_embed: bool = False
+    abs_pos_embed: bool = False        # whisper-style additive sinusoidal
     moe: Optional[MoEConfig] = None
     moe_layer_period: int = 1
     first_layer_dense: bool = False
@@ -104,6 +106,8 @@ class ModelConfig:
     conv1d_width: int = 4              # temporal conv width in recurrent block
     max_position: int = 524_288
     kv_bits: int = 16                  # 8 = int8 KV cache
+    # --- modality frontend stub -------------------------------------------
+    frontend: str = "none"             # none | audio_stub | vision_stub
     force_unroll_plan: bool = False
 
     def __post_init__(self):
@@ -122,6 +126,24 @@ class ModelConfig:
 
     def is_moe_layer(self, i: int) -> bool:
         return self.moe is not None and (i % self.moe_layer_period == 0)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    clip_norm: float = 1.0
+    microbatch: int = 0                # 0 = no accumulation
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    seed: int = 0
+    z_loss: float = 1e-4
+    loss_chunk: int = 512   # sequence-chunked xent: peak logits = B*chunk*V
 
 
 @dataclass(frozen=True)

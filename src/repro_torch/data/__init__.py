@@ -1,1 +1,2 @@
-"""Synthetic calibration data (port of ``repro/data``)."""
+"""Data: the deterministic synthetic stream and sequence packing (port
+of ``repro/data``)."""

@@ -1,1 +1,2 @@
-"""Command-line entry points: ``compress`` and ``serve``."""
+"""Entry points: the ``compress``, ``serve`` and ``train`` CLIs and the
+step builders (``steps.py``)."""

@@ -217,6 +217,9 @@ def run(cfg, args) -> Dict:
 
     _check_ported(args)
     dev = resolve_device(args.device)
+    if cfg.rope_kind == "mrope":
+        print(f"note: {cfg.name} needs frontend inputs; serving the "
+              f"text-only path")
     want_budget = args.bytes_per_token > 0 or args.target_tokens_per_s > 0
     # params follow --seed on both paths, so `--offload` (in-memory
     # compression) and `--offload --artifact` compare at any seed

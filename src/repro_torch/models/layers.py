@@ -1,7 +1,10 @@
-"""Shared primitive layers: RMSNorm, activations, RoPE, initializers
-(port of ``repro/models/layers.py``)."""
+"""Shared primitive layers: RMSNorm, activations, RoPE (1-D and
+Qwen2-VL's M-RoPE), Whisper's sinusoidal table, initializers (port of
+``repro/models/layers.py``)."""
 from __future__ import annotations
 
+import bisect
+import itertools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -93,6 +96,60 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# (head_dim, sections, device) -> (hd/2,) section of each frequency slot
+_MROPE_SLOTS: Dict[Tuple[int, Tuple[int, ...], torch.device],
+                   torch.Tensor] = {}
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...] = (16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL multimodal rotary: positions3 (3, B, S) = (t, h, w) ids.
+
+    The head_dim/2 frequency slots are partitioned into ``sections``
+    (t, h, w), each rotating by its own position stream; a slot past the
+    last boundary takes the last section (JAX clamps the index), and at
+    head_dim 32 or less every slot lies in section t.  Text
+    tokens carry t == h == w, so this is exactly 1-D RoPE for pure
+    text."""
+    hd = x.shape[-1]
+    key = (hd, tuple(sections), x.device)
+    if key not in _MROPE_SLOTS:
+        bounds = list(itertools.accumulate(sections))
+        _MROPE_SLOTS[key] = torch.tensor(
+            [min(bisect.bisect_right(bounds, i), len(sections) - 1)
+             for i in range(hd // 2)], dtype=torch.long, device=x.device)
+    freqs = rope_freqs(hd, theta, x.device)
+    pos = positions3[_MROPE_SLOTS[key]]                 # (hd/2, B, S)
+    ang = pos.permute(1, 2, 0).float() * freqs          # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# (length, dim, device) -> the table, built at the first call
+_SINUSOIDS: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
+
+
+def sinusoidal_positions(length: int, dim: int, device=None
+                         ) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table (length, dim) f32, built once
+    per (length, dim, device) and then reused (callers must not write
+    into it)."""
+    dev = torch.device("cpu" if device is None else device)
+    key = (length, dim, dev)
+    if key not in _SINUSOIDS:
+        step = torch.tensor(-math.log(10_000.0) / (dim // 2 - 1),
+                            dtype=torch.float32, device=dev)
+        inv = torch.exp(step * torch.arange(dim // 2, dtype=torch.float32,
+                                            device=dev))
+        ang = torch.arange(length, dtype=torch.float32,
+                           device=dev)[:, None] * inv[None, :]
+        _SINUSOIDS[key] = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return _SINUSOIDS[key]
 
 
 def dense_init(shape, fan_in: Optional[int], generator: torch.Generator,

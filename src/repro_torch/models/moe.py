@@ -87,12 +87,16 @@ def _sink_slots(d: Dispatch) -> torch.Tensor:
 def dispatch_tokens(x2: torch.Tensor, d: Dispatch, num_experts: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scatter (T, dm) tokens into (E, C, dm) buffers + comp mask; slots
-    past the capacity are dropped."""
-    dm = x2.shape[-1]
+    past the capacity are dropped.  Each token's k copies are a broadcast
+    (assignments are token-major), not a gather by ``t_idx``: the same
+    rows, and in training their gradient is a sum over k, where a
+    gather's backward adds with atomics in any order on the card."""
+    t, dm = x2.shape
     slot = _sink_slots(d)
     xe = torch.zeros((num_experts, d.capacity + 1, dm), dtype=x2.dtype,
                      device=x2.device)
-    xe[d.e_idx, slot] = x2[d.t_idx]
+    k = d.e_idx.shape[0] // t
+    xe[d.e_idx, slot] = x2[:, None].expand(t, k, dm).reshape(t * k, dm)
     me = torch.zeros((num_experts, d.capacity + 1), dtype=torch.float32,
                      device=x2.device)
     me[d.e_idx, slot] = d.comp

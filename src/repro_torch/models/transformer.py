@@ -1,6 +1,5 @@
 """Layer stack: parameter init, offline compression, caches and the
-per-layer forward (port of the decoder-only part of
-``repro/models/transformer.py``).
+per-layer forward (port of ``repro/models/transformer.py``).
 
 Parameters are plain dicts of tensors with one dict per layer under
 ``params["layers"]`` (the JAX package's scanned segments become a Python
@@ -10,8 +9,13 @@ them, or a Griffin recurrent block (RG-LRU + conv1d), each followed by an
 MoE FFN or a dense FFN; or a self-contained xLSTM block (mLSTM, or sLSTM
 with its own gated FFN).  A local layer's KV cache is a ring of
 ``window_size`` slots; a recurrent or xLSTM layer's cache is its O(1)
-state, written in place.  Cross-attention (an ``encoder`` config) and
-mrope are not ported: ``layer_specs`` refuses them (ROADMAP A12).
+state, written in place.  An encoder-decoder config (Whisper) adds a
+bidirectional encoder tower (``apply_encoder``) and cross-attention in
+every decoder layer, whose encoder keys and values are cache planes
+written at prefill; an mrope config (Qwen2-VL) rotates by (t, h, w)
+position streams when the caller passes them.  ``ExecContext.remat``
+recomputes each decoder layer in the backward pass
+(``torch.utils.checkpoint``), as the JAX package's ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import dataclasses
 from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..config import ModelConfig
@@ -31,7 +36,8 @@ from .kvcache import (TRASH_PAGE, claim_slot, dequant_scales,
                       paged_reset, paged_seed_prefix,
                       paged_update_attn_cache, prefill_attn_cache,
                       reset_attn_cache, reset_slot, update_attn_cache)
-from .layers import apply_rope, dense_init, embed_init, rms_norm, silu
+from .layers import (apply_mrope, apply_rope, dense_init, embed_init,
+                     rms_norm, silu)
 from .moe import RoutingInfo, moe_apply
 from .rglru import rglru_seq, rglru_step
 from .xlstm import mlstm_chunkwise, mlstm_step, slstm_seq
@@ -42,6 +48,7 @@ MIXERS = ("global", "local", "recurrent", "mlstm", "slstm")
 class LayerSpec(NamedTuple):
     mixer: str          # global | local | recurrent | mlstm | slstm
     ffn: str            # moe | dense | none
+    cross: bool = False  # enc-dec decoder cross-attention
 
 
 @dataclasses.dataclass
@@ -57,16 +64,17 @@ class ExecContext:
     # return per-MoE-layer normed FFN inputs (T, d): the offline
     # calibration pass (calib/stats.py) accumulates its statistics on them
     collect_moe_inputs: bool = False
+    # recompute each decoder layer in the backward pass; 'full' only (the
+    # JAX package's 'dots' policy serves its dry run: ROADMAP A15)
+    remat: bool = False
+    remat_policy: str = "full"       # full | dots
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
-    """Each layer's (mixer, ffn); an xLSTM block carries no separate FFN.
-    An encoder-decoder config or mrope raises ``NotImplementedError``."""
-    if cfg.encoder is not None or cfg.rope_kind == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: " + ("cross-attention and the encoder"
-                               if cfg.encoder is not None else "mrope")
-            + " are not ported yet: ROADMAP A12")
+    """Each layer's (mixer, ffn, cross); an xLSTM block carries no
+    separate FFN, and every layer of an encoder-decoder config
+    cross-attends."""
+    cross = cfg.encoder is not None
     specs = []
     for i in range(cfg.num_layers):
         mixer = cfg.layer_kind(i)
@@ -80,7 +88,7 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
             ffn = "moe"
         else:
             ffn = "dense"
-        specs.append(LayerSpec(mixer, ffn))
+        specs.append(LayerSpec(mixer, ffn, cross))
     return specs
 
 
@@ -121,6 +129,13 @@ def _init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
             # zeros, as the JAX package initialises them
             p["attn"].update(bq=zeros((h, hd)), bk=zeros((kv, hd)),
                              bv=zeros((kv, hd)))
+        if spec.cross:
+            ed = cfg.encoder.d_model
+            p["attn"].update(cross_wq=di((d, h, hd), d),
+                             cross_wk=di((ed, h, hd), ed),
+                             cross_wv=di((ed, h, hd), ed),
+                             cross_wo=di((h, hd, d), h * hd),
+                             cross_norm=zeros((d,)))
     p["ffn_norm"] = zeros((d,))
     if cfg.post_attn_norm:
         p["post_norm"] = zeros((d,))
@@ -209,7 +224,35 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
                                           cfg.d_model, gen, dev, dtype)}
     params["layers"] = [_init_layer(gen, spec, cfg, dev, dtype)
                         for spec in specs]
+    if cfg.encoder is not None:
+        params["encoder"] = init_encoder_params(gen, cfg, dev, dtype)
     return params
+
+
+def init_encoder_params(gen: torch.Generator, cfg: ModelConfig, device,
+                        dtype) -> Dict:
+    """The encoder tower: ``layers`` (one dict per layer: bidirectional
+    attention and a plain gelu MLP) and ``final_norm``; the JAX package's
+    leaves, unstacked."""
+    e = cfg.encoder
+    ed, nh = e.d_model, e.num_heads
+
+    def di(shape, fan_in):
+        return dense_init(shape, fan_in, gen, device, dtype)
+
+    def zeros():
+        return torch.zeros((ed,), dtype=dtype, device=device)
+
+    layers = [{"pre_norm": zeros(),
+               "attn": {"wq": di((ed, nh, ed // nh), ed),
+                        "wk": di((ed, nh, ed // nh), ed),
+                        "wv": di((ed, nh, ed // nh), ed),
+                        "wo": di((nh, ed // nh, ed), ed)},
+               "ffn_norm": zeros(),
+               "ffn": {"w1": di((ed, e.d_ff), ed),
+                       "w2": di((e.d_ff, ed), e.d_ff)}}
+              for _ in range(e.num_layers)]
+    return {"layers": layers, "final_norm": zeros()}
 
 
 @torch.no_grad()
@@ -332,10 +375,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     length); a recurrent or xLSTM layer's is its state."""
     def one(spec: LayerSpec):
         if spec.mixer in ("global", "local"):
-            return init_attn_cache(
+            c = init_attn_cache(
                 batch, min(cfg.window_size, max_len)
                 if spec.mixer == "local" else max_len, cfg.num_kv_heads,
                 cfg.head_dim, dtype, kv_bits=cfg.kv_bits, device=device)
+            if spec.cross:
+                # the encoder's keys and values, written at prefill
+                shape = (batch, cfg.encoder.source_len, cfg.num_heads,
+                         cfg.head_dim)
+                c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+                c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+            return c
         return _state_cache(spec, cfg, batch, device)
 
     return {"layers": [one(spec) for spec in layer_specs(cfg)],
@@ -353,6 +403,8 @@ def init_paged_caches(cfg: ModelConfig, num_slots: int, num_pages: int,
     xLSTM states are window-bounded or O(1) already and stay slot-indexed
     beside the pools (the JAX package's mixed plans)."""
     def one(spec: LayerSpec):
+        if spec.cross:
+            raise NotImplementedError("paged cache with cross-attention")
         if spec.mixer == "global":
             return init_paged_attn_cache(
                 num_slots, num_pages, page_size, max_blocks,
@@ -511,19 +563,28 @@ def cache_rollback(cfg: ModelConfig, caches: Dict, new_len: torch.Tensor
 # layer application
 # ---------------------------------------------------------------------------
 
-def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, mixer: str,
-                positions, cache):
-    window = cfg.window_size if mixer == "local" else None
+def _rope(q, k, cfg: ModelConfig, mixer: str, positions, mrope_pos):
+    """RoPE of the config's kind; an mrope config without (3, B, S)
+    ``mrope_pos`` (the text path) rotates by ``positions`` in 1-D."""
+    if cfg.rope_kind == "none":
+        return q, k
+    theta = (cfg.rope_local_theta if mixer == "local"
+             and cfg.rope_local_theta else cfg.rope_theta)
+    if cfg.rope_kind == "mrope" and mrope_pos is not None:
+        return (apply_mrope(q, mrope_pos, theta),
+                apply_mrope(k, mrope_pos, theta))
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+
+
+def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, spec: LayerSpec,
+                positions, cache, mrope_pos=None, enc_out=None):
+    window = cfg.window_size if spec.mixer == "local" else None
     q = torch.einsum("bsd,dhk->bshk", x, ap["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, ap["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, ap["wv"])
     if "bq" in ap:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    if cfg.rope_kind != "none":
-        theta = (cfg.rope_local_theta if mixer == "local"
-                 and cfg.rope_local_theta else cfg.rope_theta)
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
+    q, k = _rope(q, k, cfg, spec.mixer, positions, mrope_pos)
     if ctx.mode == "step" and is_paged(cache):
         # paged: write through the block table, then read the pool through
         # it (block-table contents are data, so one captured decode graph
@@ -542,7 +603,33 @@ def _attn_layer(x, ap, cfg: ModelConfig, ctx: ExecContext, mixer: str,
                         window=window)
         if ctx.mode == "prefill" and cache is not None:
             prefill_attn_cache(cache, k, v, positions)
-    return torch.einsum("bshk,hkd->bsd", out, ap["wo"])
+    y = torch.einsum("bshk,hkd->bsd", out, ap["wo"])
+    if spec.cross:
+        y = y + _cross_attn(x + y, ap, cfg, ctx, positions, cache, enc_out)
+    return y
+
+
+def _cross_attn(x, ap, cfg: ModelConfig, ctx: ExecContext, positions, cache,
+                enc_out):
+    """Decoder cross-attention over the encoder's output: its keys and
+    values are projected from ``enc_out`` (and written into the cache at
+    prefill) or read from the cache in decode.  Plain attention in every
+    mode, as the JAX package computes it."""
+    xc = rms_norm(x, ap["cross_norm"], cfg.norm_eps)
+    qc = torch.einsum("bsd,dhk->bshk", xc, ap["cross_wq"])
+    if ctx.mode == "step":
+        ck, cv = cache["cross_k"], cache["cross_v"]
+    else:
+        ck = torch.einsum("bsd,dhk->bshk", enc_out, ap["cross_wk"])
+        cv = torch.einsum("bsd,dhk->bshk", enc_out, ap["cross_wv"])
+        if ctx.mode == "prefill" and cache is not None:
+            cache["cross_k"].copy_(ck)
+            cache["cross_v"].copy_(cv)
+    b, src = ck.shape[0], ck.shape[1]
+    src_pos = torch.arange(src, device=ck.device).expand(b, src)
+    co = attention(qc, ck, cv, torch.zeros_like(positions) + src, src_pos,
+                   causal=False)
+    return torch.einsum("bshk,hkd->bsd", co, ap["cross_wo"])
 
 
 def _keep_state(cache, new_state, ctx: ExecContext) -> None:
@@ -607,7 +694,8 @@ def _slstm_block(x, p, cfg: ModelConfig, ctx: ExecContext, cache):
 
 
 def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
-                positions, cache, plan_row=None):
+                positions, cache, plan_row=None, mrope_pos=None,
+                enc_out=None):
     """One transformer layer.  Returns (x, aux, routing info, MoE input);
     a dense, recurrent or xLSTM layer gives no aux, no routing info and no
     MoE input.  The MoE input is the (T, d) f32 normed FFN input when
@@ -621,8 +709,8 @@ def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
     if spec.mixer == "recurrent":
         y = _recurrent(h, p["rglru"], ctx, cache)
     else:
-        y = _attn_layer(h, p["attn"], cfg, ctx, spec.mixer, positions,
-                        cache)
+        y = _attn_layer(h, p["attn"], cfg, ctx, spec, positions, cache,
+                        mrope_pos, enc_out)
     if cfg.post_attn_norm:
         y = rms_norm(y, p["post_norm"], cfg.norm_eps)
     x = x + y
@@ -657,8 +745,23 @@ def _post_ffn(y, p, cfg: ModelConfig):
     return y
 
 
+def _remat(fn, ctx: ExecContext):
+    """``fn`` recomputed in the backward pass when ``ctx.remat`` (the
+    activations inside it are not kept)."""
+    if not ctx.remat:
+        return fn
+    if ctx.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {ctx.remat_policy!r} is not ported yet: ROADMAP "
+            f"A15 (only the dry run asks for it)")
+
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return run
+
+
 def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
-                caches=None, plan=None):
+                caches=None, plan=None, mrope_pos=None, enc_out=None):
     """Run every layer.  Returns (x, aux, caches, trace, probs,
     moe_inputs); with caches, their per-row decode position
     ``caches["pos"]`` advances in place past the last of ``positions``.
@@ -669,17 +772,20 @@ def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
     has an MoE layer (else None).  ``moe_inputs`` is the stacked
     (moe_layers, T, d) f32 normed MoE-FFN inputs in the same order when
     ``ctx.collect_moe_inputs`` is set (the calibration pass).
-    ``plan``: optional (moe_layers, 2) [top_n, rank_cap] rows."""
+    ``plan``: optional (moe_layers, 2) [top_n, rank_cap] rows;
+    ``mrope_pos``: (3, B, S) M-RoPE positions; ``enc_out``: the encoder's
+    output that cross-attention reads (prefill and train)."""
     use_cache = caches is not None and ctx.mode in ("prefill", "step")
+    layer_fn = _remat(apply_layer, ctx)
     aux = {"load_balance": 0.0, "router_z": 0.0}
     infos: List[RoutingInfo] = []
     moe_ins: List[torch.Tensor] = []
     for li, (lp, spec) in enumerate(zip(params["layers"], layer_specs(cfg))):
-        x, a, info, moe_in = apply_layer(
+        x, a, info, moe_in = layer_fn(
             x, lp, spec, cfg, ctx, positions,
             caches["layers"][li] if use_cache else None,
             plan_row=None if plan is None or spec.ffn != "moe"
-            else plan[len(infos)])
+            else plan[len(infos)], mrope_pos=mrope_pos, enc_out=enc_out)
         for key, val in a.items():
             aux[key] = aux[key] + val    # empty outside training
         if info is not None:
@@ -698,3 +804,24 @@ def apply_stack(params, x, cfg: ModelConfig, ctx: ExecContext, positions,
         probs = torch.stack([i.probs for i in infos])
     moe_inputs = torch.stack(moe_ins) if moe_ins else None
     return x, aux, new_caches, trace, probs, moe_inputs
+
+
+def apply_encoder(params, embeds, cfg: ModelConfig, ctx: ExecContext):
+    """Whisper-style bidirectional encoder over stub frame embeddings
+    (B, source_len, d_enc); returns its final-normed output."""
+    ep = params["encoder"]
+    dtype = ep["layers"][0]["ffn"]["w1"].dtype
+    x = embeds.to(dtype)
+    b, src = x.shape[0], x.shape[1]
+    pos = torch.arange(src, device=x.device).expand(b, src)
+    for lp in ep["layers"]:
+        ap = lp["attn"]
+        h = rms_norm(x, lp["pre_norm"], cfg.norm_eps)
+        q = torch.einsum("bsd,dhk->bshk", h, ap["wq"])
+        k = torch.einsum("bsd,dhk->bshk", h, ap["wk"])
+        v = torch.einsum("bsd,dhk->bshk", h, ap["wv"])
+        o = attention(q, k, v, pos, pos, causal=False)
+        x = x + torch.einsum("bshk,hkd->bsd", o, ap["wo"])
+        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        x = (x + ffn_apply(h, lp["ffn"], "gelu", False)).to(dtype)
+    return rms_norm(x, ep["final_norm"], cfg.norm_eps)

@@ -6,8 +6,9 @@ from typing import Callable, Dict
 from .config import ModelConfig
 from .configs import (deepseek_moe_16b, gemma3_1b, gemma3_27b,
                       llama3_2_3b, llama4_scout_17b_a16e, mixtral_8x7b,
-                      mixtral_8x22b, qwen2_7b, qwen3_moe_30b_a3b,
-                      recurrentgemma_9b, xlstm_125m)
+                      mixtral_8x22b, qwen2_7b, qwen2_vl_7b,
+                      qwen3_moe_30b_a3b, recurrentgemma_9b, whisper_base,
+                      xlstm_125m)
 from .configs.base import reduce_config
 
 REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
@@ -22,6 +23,8 @@ REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e.config,
     "recurrentgemma-9b": recurrentgemma_9b.config,
     "xlstm-125m": xlstm_125m.config,
+    "whisper-base": whisper_base.config,
+    "qwen2-vl-7b": qwen2_vl_7b.config,
 }
 
 

@@ -309,6 +309,11 @@ class ServeEngine:
         bucket's decode step as a captured CUDA graph (None: on a CUDA
         engine; True on a CPU engine raises; False keeps the eager
         loop)."""
+        if cfg.encoder is not None:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder model: ServeEngine takes "
+                f"no encoder inputs; run it through launch/steps.py's "
+                f"make_prefill_step / make_serve_step with enc_embeds")
         self.device = resolve_device(device)
         tok = params["embed"]["tok"]
         if tok.device.type != self.device.type:
@@ -1455,10 +1460,9 @@ def router_trace(cfg: ModelConfig, params, tokens: np.ndarray,
                  kernel_impl: Optional[str] = None) -> np.ndarray:
     """Per-token routing decisions (tokens, moe_layers, k) of one forward
     over ``tokens`` (B, S), with exact capacity, on the device the
-    parameters live on: the trace the offload simulator replays.  (The
-    JAX package runs its train context; the port has none, and the
-    prefill context without caches routes the same.)"""
-    ctx = ExecContext(mode="prefill", quantized=quantized,
+    parameters live on: the trace the offload simulator replays (the
+    train context, as the JAX package runs it)."""
+    ctx = ExecContext(mode="train", quantized=quantized,
                       exact_capacity=True, collect_trace=True,
                       kernel_impl=kernel_impl)
     dev = params["embed"]["tok"].device

@@ -36,9 +36,8 @@ zeroes everything past each slot's accepted length in place, leaving the
 cache bit-identical to never having drafted the rejected suffix.
 
 The drafters run on the host (the n-gram tables) or re-read a window of
-each slot's committed tokens through a cache-free prefill forward (the
-draft model; the port has no train context, and the prefill context
-without caches computes the same forward).
+each slot's committed tokens through a cache-free forward in the train
+context (the draft model), as the JAX package's drafter does.
 """
 from __future__ import annotations
 
@@ -170,7 +169,7 @@ class DraftModelDrafter:
     """Greedy proposals from a small stand-in draft model.
 
     The draft model re-reads a fixed ``window`` of each slot's committed
-    tail per proposal step (a cache-free prefill forward: no draft KV
+    tail per proposal step (a cache-free forward: no draft KV
     cache to keep in sync with the target's commit and rollback) and
     extends with its argmax ``k`` times.  Proposals are point-mass: the
     verify pass applies the same rejection rule as the n-gram path."""
@@ -183,7 +182,7 @@ class DraftModelDrafter:
         self.params = params
         self.window = int(window)
         self.device = params["embed"]["tok"].device
-        self._ctx = ExecContext(mode="prefill", quantized=quantized,
+        self._ctx = ExecContext(mode="train", quantized=quantized,
                                 exact_capacity=True, kernel_impl=kernel_impl)
         self._hist: Dict[int, List[int]] = {}
 

@@ -465,8 +465,11 @@ def _flash_args(dev, B, H, KVH, hd, S, kind, filled, seed):
 # (4, 512) and (4, 1024) buckets; Qwen2-7B's G 7 (28 / 4 heads, run by
 # the G 8 instantiation) and Gemma3-1B's (4 / 1 heads, hd 256) ring;
 # RecurrentGemma-9B's G 16 (16 / 1 heads, hd 256: eight query-head groups
-# of 2) at its window, and G 9 (four groups of 2 and one of 1)
-_FLASH_SHAPES = {"rgemma_g16": (4, 16, 1, 256, 2048),
+# of 2) at its window, and G 9 (four groups of 2 and one of 1);
+# Whisper-base's self-attention (G 1, hd 64) at S 128 and 2048
+_FLASH_SHAPES = {"whisper_s128": (4, 8, 8, 64, 128),
+                 "whisper_s2048": (4, 8, 8, 64, 2048),
+                 "rgemma_g16": (4, 16, 1, 256, 2048),
                  "g9": (2, 18, 2, 128, 300),
                  "qwen2_g7": (4, 28, 4, 128, 512),
                  "gemma3_1b": (4, 4, 1, 256, 512),
@@ -953,6 +956,25 @@ def test_quant_matmul_decode_recurrentgemma_shapes(dev, proj, m):
     """The decode kernel at RecurrentGemma-9B's projections (K 4096 = 64
     pack blocks, K 12288 = 192), as its decode step runs them."""
     _decode_shape_case(dev, *_RECURRENTGEMMA[proj], m)
+
+
+# Whisper-base's decoder FFN (plain MLP, 3-bit E = 1 stacks of rank 16):
+# K 512 -> N 2048 and back
+_WHISPER = {"w1": (512, 2048), "w2": (2048, 512)}
+
+
+@pytest.mark.parametrize("m", [1, 4, 256])
+@pytest.mark.parametrize("proj", ["w1", "w2"])
+def test_quant_matmul_whisper_3bit_shapes(dev, proj, m):
+    """Kernel 3 at 3 bits (a 2-bit and a 1-bit plane) on Whisper's
+    projections: the decode kernel at M 1 and 4, the tensor-core tile at
+    M 256 (a prefill of 64-token prompts at batch 4)."""
+    k, n = _WHISPER[proj]
+    args = _qmm_args(dev, m, k, n, 16, 3, m + k, mask_mode="ones")
+    got = qm.quant_matmul(*args, bits=3, group_size=64, require_kernel=True)
+    want = qm.quant_matmul_plain(*args, bits=3, group_size=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FUSED_TOL)
 
 
 def _decode_shape_case(dev, k, n, m):
@@ -1723,3 +1745,75 @@ def test_greedy_spec_serve_equals_plain_serve_on_card(dev, page_size):
         [r.tokens.tolist() for r in plain.results]
     assert eng.num_spec_graphs == 1 and spec.chunk == 4
     assert 0.0 <= spec.spec_report["acceptance_rate"] <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# training: the fused cross entropy and AdamW on the card
+# ---------------------------------------------------------------------------
+
+def _train_case(device):
+    from repro_torch.config import ModelConfig
+    from repro_torch.models.transformer import init_params
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
+                      num_heads=2, num_kv_heads=1, head_dim=32, d_ff=128,
+                      vocab_size=256, block_pattern=("global",),
+                      tie_embeddings=False, max_position=256)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, 256, (2, 41)).astype(np.int32)}
+    return cfg, init_params(cfg, 0, torch.float32, "cpu"), batch
+
+
+def test_fused_xent_grads_match_cpu(dev):
+    """``lm_loss`` through the fused cross entropy (two padded chunks of
+    16), on the card against the CPU from the same parameters: the loss
+    within 1e-5, each gradient within 2e-2 of its max |g| (bf16
+    cotangents, rounded from f32 logits that differ in the last place);
+    and twice on the card bit for bit."""
+    from repro_torch.models.model import lm_loss
+    from repro_torch.models.transformer import ExecContext
+    from repro_torch.train.microbatch import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, params, batch = _train_case("cpu")
+    ctx = ExecContext(mode="train", remat=True)
+    vg = value_and_grad(lambda p, b: lm_loss(p, b, cfg, ctx, loss_chunk=16))
+    out = {}
+    for where in ("cpu", "cuda", "cuda again"):
+        d = torch.device(where.split()[0])
+        out[where] = vg(tree_map(lambda t: t.to(d), params),
+                        {k: torch.as_tensor(v, device=d)
+                         for k, v in batch.items()})
+    (lc, _), gc = out["cpu"]
+    (lg, _), gg = out["cuda"]
+    assert abs(float(lc) - float(lg)) <= 1e-5 * abs(float(lc))
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            2e-2 * float(b.abs().max()) + 1e-7
+    for a, b in zip(tree_leaves(gg), tree_leaves(out["cuda again"][1])):
+        assert torch.equal(a, b)
+
+
+def test_adamw_step_matches_cpu(dev):
+    """One AdamW update (clipping on) from the same state and gradients:
+    master, moments and the recast parameters on the card within 1e-6
+    (relative) of the CPU's, or 1e-8 (about an ulp of a parameter of
+    0.1) where an update cancels a parameter to near zero (the card
+    contracts ``p - lr * u`` into one rounding)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+    _, params, _ = _train_case("cpu")
+    g = torch.Generator().manual_seed(1)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=g), params)
+    tcfg = TrainConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    out = {}
+    for d in ("cpu", "cuda"):
+        # copies: the update writes the params (and clips f32 grads) in
+        # place
+        p = tree_map(lambda t: t.to(d, copy=True), params)
+        new, st, m = adamw_update(tree_map(lambda t: t.to(d, copy=True),
+                                           grads), adamw_init(p), tcfg, p)
+        out[d] = (new, st, m)
+    for a, b in zip(tree_leaves(out["cuda"][:2]), tree_leaves(out["cpu"][:2])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-8)
+    assert float(out["cuda"][2]["grad_norm"]) == pytest.approx(
+        float(out["cpu"][2]["grad_norm"]), rel=1e-6)

@@ -79,11 +79,12 @@ def test_llama_layers_are_dense_global():
     assert (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings) == \
         (3072, 24, 8, 128, 8192, 128_256, True)
-    # cross-attention (an encoder config) is still unported
+    assert not any(s.cross for s in layer_specs(cfg))
+    # an encoder config cross-attends in every decoder layer
     from repro_torch.config import EncoderConfig
-    with pytest.raises(NotImplementedError, match="encoder.*ROADMAP A12"):
-        layer_specs(dataclasses.replace(
-            cfg, encoder=EncoderConfig(2, 3072, 24, 8192, 24)))
+    assert all(s.cross and s.ffn == "dense" for s in layer_specs(
+        dataclasses.replace(cfg, encoder=EncoderConfig(2, 3072, 24, 8192,
+                                                       24))))
 
 
 def test_bridge_carries_dense_ffn_and_e1_stacks():

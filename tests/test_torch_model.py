@@ -50,7 +50,8 @@ def _models():
                                   "deepseek-moe-16b", "qwen3-moe-30b-a3b",
                                   "gemma3-1b", "gemma3-27b", "qwen2-7b",
                                   "mixtral-8x22b", "llama4-scout-17b-a16e",
-                                  "recurrentgemma-9b", "xlstm-125m"])
+                                  "recurrentgemma-9b", "xlstm-125m",
+                                  "whisper-base", "qwen2-vl-7b"])
 def test_config_copy_matches_jax(arch):
     for reduced in (True, False):
         _check_config_copy(j_get_config(arch, reduced=reduced),
@@ -71,8 +72,18 @@ def _check_config_copy(jcfg, tcfg):
         elif f.name == "quant":
             assert dataclasses.asdict(tv).items() <= \
                 dataclasses.asdict(jv).items()
+        elif f.name == "encoder" and tv is not None:
+            assert dataclasses.asdict(tv) == dataclasses.asdict(jv)
         else:
             assert tv == jv, f.name
+
+
+def test_train_config_copy_matches_jax():
+    """``TrainConfig`` is a copy: fields and defaults."""
+    from repro.config import TrainConfig as JTrainConfig
+    from repro_torch.config import TrainConfig
+    assert [(f.name, f.default) for f in dataclasses.fields(TrainConfig)] \
+        == [(f.name, f.default) for f in dataclasses.fields(JTrainConfig)]
 
 
 def test_serve_and_control_config_copies_match_jax():
@@ -203,7 +214,12 @@ def test_port_imports_neither_jax_nor_repro():
                 "calib/artifact.py", "checkpoint/artifact.py",
                 "launch/compress.py", "launch/serve.py",
                 "models/rglru.py", "models/xlstm.py",
-                "configs/recurrentgemma_9b.py", "configs/xlstm_125m.py"):
+                "configs/recurrentgemma_9b.py", "configs/xlstm_125m.py",
+                "configs/whisper_base.py", "configs/qwen2_vl_7b.py",
+                "tree.py", "optim/adamw.py", "train/loop.py",
+                "train/microbatch.py", "data/packing.py",
+                "checkpoint/manager.py", "launch/steps.py",
+                "launch/train.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         for name in _imports(f):

@@ -473,20 +473,27 @@ def test_stateful_plans_refuse_prefix_cache_and_speculation(arch):
 
 @pytest.mark.parametrize("what", ["encoder", "mrope"])
 def test_unported_mixers_raise_naming_a12(what):
-    """An encoder-decoder config (cross-attention) and mrope are still
-    refused, by ``layer_specs`` and so by every entry point on it, with
-    ``NotImplementedError`` naming ROADMAP A12."""
+    """The last mixers of ROADMAP A12 (part 3): an encoder-decoder config
+    (cross-attention) and mrope build their plans, caches and parameters;
+    an encoder config adds the encoder tower and each layer's cross
+    planes, and its paged cache raises (JAX's refusal); mrope adds no
+    leaf and no plane."""
     from repro_torch.config import EncoderConfig
-    cfg = get_config("qwen2-7b", reduced=True)
-    cfg = (dataclasses.replace(cfg, encoder=EncoderConfig(2, 128, 2, 192,
-                                                          24))
+    base = get_config("qwen2-7b", reduced=True)
+    cfg = (dataclasses.replace(base, encoder=EncoderConfig(2, 128, 2, 192,
+                                                           24))
            if what == "encoder" else
-           dataclasses.replace(cfg, rope_kind="mrope"))
-    for fn in (layer_specs,
-               lambda c: init_caches(c, 1, 8, device="cpu"),
-               lambda c: init_params(c, 0, torch.float32, "cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            fn(cfg)
+           dataclasses.replace(base, rope_kind="mrope"))
+    enc = what == "encoder"
+    assert [s.cross for s in layer_specs(cfg)] == [enc] * cfg.num_layers
+    caches = init_caches(cfg, 1, 8, device="cpu")
+    assert all(("cross_k" in c) == enc for c in caches["layers"])
+    params = init_params(cfg, 0, torch.float32, "cpu")
+    assert ("encoder" in params) == enc
+    assert ("cross_wq" in params["layers"][0]["attn"]) == enc
+    if enc:
+        with pytest.raises(NotImplementedError, match="cross-attention"):
+            init_paged_caches(cfg, 2, 8, 4, 2, device="cpu")
 
 
 def test_graph_key_of_stateful_and_mixed_plans():
