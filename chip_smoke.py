@@ -193,6 +193,25 @@ Phases:
                 a 12 x 16 image grid between text at M-RoPE positions,
                 against a bf16 'ref' run (LOGIT_TOL_BF16), and the
                 ServeEngine's text path = the step builders at t = h = w
+ 16. ep         expert-parallel serving, run after phase 15 (before phase
+                9), on meshes of 2 ranks (processes, gloo collectives,
+                every rank on cuda:0): (a) kernel 1 on each shard's
+                experts (ep 2 and 4, the shard's own widths and ranks)
+                against the full-E call's rows and the plain version in
+                f64; (b) Mixtral-8x7B (phase 3's weights through an
+                artifact, each rank loading its slice): generate = phase
+                3's eager loop (tokens and traces), teacher-forced against
+                a single-device engine, tok/s, collectives' host ms per
+                step, peak memory per rank; (c) serve with offload
+                metering (bytes, hits and per-shard bytes = the
+                single-device engine's through attach_offload(ep=2)), a
+                per_shard budget's plan trace, paged and speculative
+                serving; (d) DeepSeek-MoE-16B (bf16, EP_DEEPSEEK_LAYERS
+                deep) under the bf16 protocol, and (d') the same weights
+                in f32: teacher-forced within LOGIT_TOL, greedy tokens
+                and traces equal up to f32 near-ties; (e) the serve CLI
+                with --mesh ep=2 --dist-backend gloo.  Launches are
+                counted over generate alone
 
 It prints a ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -205,8 +224,10 @@ import gc
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1192,7 +1213,8 @@ def slice_phase(dev, dtype=torch.float32):
             "decode_tok_s": res.decode_tokens_per_s,
             "eager_tok_s": sv["eager"].decode_tokens_per_s,
             "compress_s": t_comp, "B": B, "P": P, "NEW": NEW,
-            "mma_launches": mma_launches}
+            "mma_launches": mma_launches, "cut": cfg, "prompts": prompts,
+            "eager": sv["eager"]}
 
 
 def serve_slice(dev, cfg_q, qparams, prompts, NEW, counters) -> dict:
@@ -4881,6 +4903,470 @@ KERNEL_NAMES = {"fused_expert_matmul": r"fused_expert|fused_mma",
                 "quant_matmul": r"qmm_"}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: expert-parallel serving on a mesh of ranks (gloo, every rank on
+# cuda:0), after phase 15 and before phase 9
+# ---------------------------------------------------------------------------
+
+# DeepSeek-MoE-16B's depth on the mesh: a dense layer 0 and 3 MoE layers
+EP_DEEPSEEK_LAYERS = 4
+
+
+def slice_args(args, lo: int, hi: int):
+    """Experts ``[lo, hi)`` of one fused-expert case's arguments (the rank
+    cap is shared): what a rank of an expert-parallel mesh passes kernel 1
+    for its slice, per-expert widths and ranks included."""
+    out = []
+    for i, a in enumerate(args):
+        if a is None or i == 10:
+            out.append(a)
+        elif isinstance(a, tuple):
+            out.append(tuple(p[lo:hi] for p in a))
+        else:
+            out.append(a[lo:hi])
+    return out
+
+
+def local_slice_cases(dev, gen) -> dict:
+    """Phase 16 (a): kernel 1 on each shard's E/ep experts (ep 2 and 4) with
+    the shard's own expert_bits and ranks, against the same rows of the
+    full-E call (bit for bit, or within FUSED_TOL with the largest
+    difference recorded) and, on both main-kernel paths forced, against
+    the plain version in f64: Mixtral-8x7B's w1 and w2 (E 8, heterogeneous
+    widths in a 3-bit container) at C 4 and 1024, DeepSeek-MoE-16B's w1 (E
+    64, top-6 dispatch) at C 4."""
+    from repro_torch.kernels import quant_matmul as qm
+    worst_plain = worst_full = 0.0
+    bit_equal = True
+    cases = [("mixtral w1", 8, 4096, 14336, C) for C in (4, 1024)]
+    cases += [("mixtral w2", 8, 14336, 4096, C) for C in (4, 1024)]
+    cases += [("deepseek w1", 64, 2048, 1408, 4)]
+    for name, E, K, N, C in cases:
+        if E == 64:
+            xe, me, ge, rows = dispatch_like(gen, dev, 64, C, K, 6, 3)
+            args = list(random_stack_inputs(gen, dev, 64, 1, K, N, 1024, 2,
+                                            False, "full", True))
+            args[0], args[8], args[9], args[13] = xe, me, None, rows
+        else:
+            args = list(random_stack_inputs(
+                gen, dev, E, C, K, N, 256, 3, gated=name.endswith("w2"),
+                rank_mode="full", hetero=True, with_rows=C == 4))
+        bits = 3 if E == 8 else 2
+        full = qm.fused_expert_matmul(*args, bits=bits, group_size=64,
+                                      require_kernel=True)
+        for ep in (2, 4):
+            el = E // ep
+            for s in range(ep):
+                sl = slice_args(args, s * el, (s + 1) * el)
+                got = qm.fused_expert_matmul(*sl, bits=bits, group_size=64,
+                                             require_kernel=True)
+                want = full[s * el:(s + 1) * el]
+                same = torch.equal(got, want)
+                bit_equal &= same
+                mx = allclose_report(
+                    f"{name} C={C} ep={ep} shard {s} vs the full-E rows",
+                    got, want, **FUSED_TOL)
+                worst_full = max(worst_full, mx)
+                if ep == 2 and s == 1:
+                    ref = qm.fused_expert_matmul_plain(
+                        sl[0].double(), *sl[1:], bits=bits, group_size=64)
+                    for path in ("simt", "mma"):
+                        g = qm._launch_fused(path, *sl, bits=bits,
+                                             group_size=64)
+                        mp = allclose_report(
+                            f"{name} C={C} ep=2 shard 1 path={path}", g, ref,
+                            **FUSED_TOL)
+                        worst_plain = max(worst_plain, mp)
+                    del ref
+            log(f"  ok  fused local slices {name} K={K} N={N} C={C} ep={ep}"
+                f" (expert_bits per shard "
+                f"{[args[11][s * el:(s + 1) * el].tolist() for s in range(ep)]}"
+                f"): {'bit-equal to' if bit_equal else 'within FUSED_TOL of'}"
+                f" the full-E call's rows, max |diff| {worst_full:.3e}; "
+                f"forced paths vs f64 plain max |diff| {worst_plain:.3e}")
+        del args, full
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst_plain, "slice_vs_full_max_diff": worst_full,
+            "slice_bit_equal": bool(bit_equal)}
+
+
+def ep_summary(st) -> dict:
+    """Host-side figures of a ``ServeStats`` to compare across processes."""
+    rep = st.offload_report
+    return {"tokens": [r.tokens.tolist() for r in st.results],
+            "results": st.results,
+            "trace": st.router_trace, "plan_trace": st.plan_trace,
+            "report": None if rep is None else {
+                k: rep[k] for k in ("total_bytes", "tokens", "hit_rate",
+                                    "per_shard_bytes", "ep",
+                                    "compensator_bytes", "demand_bytes")},
+            "shard_bytes": (None if st.shard_bytes is None
+                            else st.shard_bytes.tolist()),
+            "tok_s": st.tokens_per_s}
+
+
+def ep_workload(vocab: int, seed: int):
+    from repro_torch.serve import synthetic_workload
+    return synthetic_workload(8, vocab, max_new=16, min_len=24, max_len=160,
+                              seed=seed)
+
+
+def ep_serve_cases(eng, meta_stacks, vocab: int, budget: float) -> dict:
+    """Phase 16 (c)'s serves on one engine (a mesh engine, or the
+    single-device one metering through ``attach_offload(ep=2)``): 8
+    ragged requests on 4 slots, chunks of 8, LRU 8 of 8 per shard (no
+    eviction), then a per_shard byte budget at LRU 2; on the mesh also
+    paged at page 16 and greedy speculation at k 2."""
+    from repro_torch.config import ControlConfig
+    out = {}
+    kw = {} if eng.mesh is not None else {"ep": 2}
+
+    def offload(cap):
+        eng.attach_offload(meta_stacks, policy="ours", cache_capacity=cap,
+                           **kw)
+        eng._controller = None
+
+    offload(8)
+    out["serve"] = ep_summary(eng.serve(ep_workload(vocab, 5), num_slots=4,
+                                        chunk=8))
+    offload(2)
+    eng.attach_controller(ControlConfig(enabled=True, bytes_per_token=budget,
+                                        budget_scope="per_shard"))
+    out["per_shard"] = ep_summary(eng.serve(ep_workload(vocab, 6),
+                                            num_slots=4, chunk=8))
+    if eng.mesh is None:
+        return out
+    offload(8)
+    out["paged"] = ep_summary(eng.serve(ep_workload(vocab, 5), num_slots=4,
+                                        chunk=8, page_size=16))
+    offload(8)
+    out["spec"] = ep_summary(eng.serve(ep_workload(vocab, 5), num_slots=4,
+                                       spec_k=2, drafter="ngram"))
+    return out
+
+
+def ep_rank(rank: int, jobs: list) -> list:
+    """One rank of phase 16's mesh of 2 (gloo, cuda:0), running each job in
+    turn ((b) + (c) for Mixtral-8x7B, then (d) for DeepSeek-MoE-16B) with
+    ``ep_job``; the engines of a job are freed before the next."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    mesh = make_serve_mesh(2, backend="gloo", device=dev)
+    outs = []
+    for job in jobs:
+        outs.append(ep_job(mesh, job, t0))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+    return outs
+
+
+def ep_job(mesh, job: dict, t0: float) -> dict:
+    """One model on the mesh: the seeded params, the artifact's slice of
+    the experts, ``generate`` of the job's prompts (wrapper launches
+    counted over it), the eager loop's collectives and memory, then the
+    teacher-forced logits against a single-device engine on the same
+    weights in this rank (``teacher_forced``: in bf16 one step of both
+    from the same state), and with ``job['serve']`` phase (c)'s serves.
+    A failed check exits the rank non-zero, which fails the run."""
+    from repro_torch.calib import load_compression_artifact
+    from repro_torch.kernels import decode_attention as fd
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.models.transformer import (apply_compressed_stacks,
+                                                init_params)
+    from repro_torch.serve.engine import ServeEngine
+    dev = mesh.device
+    cfg, dtype = job["cfg"], job["dtype"]
+    params = init_params(cfg, seed=0, dtype=dtype, device=dev)
+    local, _, _ = load_compression_artifact(job["art"], job["cfg_q"],
+                                            device=dev,
+                                            shard=(mesh.rank, 2))
+    qp, cfg_q = apply_compressed_stacks(params, cfg, local)
+    del params                  # the dense experts
+    torch.cuda.empty_cache()
+    eng = ServeEngine(cfg_q, qp, quantized=True, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    boot_s = time.perf_counter() - t0
+    prompts, NEW = job["prompts"], job["new"]
+    eng.generate(prompts, max_new=2)              # warm-up: libraries, RoPE
+    # the collectives of generate's own prefill: its mesh counters read
+    # on both sides of the engine's prefill (gloo's calls return when
+    # done, so the host clock holds them)
+    marks = []
+    prefill = eng.prefill
+
+    def counted_prefill(*a, **kw):
+        marks.append((mesh.comm_s, mesh.comm_calls))
+        out = prefill(*a, **kw)
+        marks.append((mesh.comm_s, mesh.comm_calls))
+        return out
+
+    eng.prefill = counted_prefill
+    torch.cuda.reset_peak_memory_stats(dev)
+    c0 = (mesh.comm_s, mesh.comm_calls)
+    for c in (qm.launches, fd.launches):
+        c.reset()
+    res = eng.generate(prompts, max_new=NEW)
+    launches = {"fused_expert_matmul": qm.launches.n,
+                "flash_decode_attention": fd.launches.n}
+    c2 = (mesh.comm_s, mesh.comm_calls)
+    del eng.prefill
+    if len(marks) != 2:
+        fail(f"generate ran {len(marks) // 2} prefills, expected 1")
+    (a0, an), (b0, bn) = marks
+    pre_s, pre_n = b0 - a0, bn - an
+    dec_s = (c2[0] - c0[0]) - pre_s
+    dec_n = (c2[1] - c0[1]) - pre_n
+    out = {"rank": mesh.rank, "boot_s": boot_s, "tokens": res.tokens,
+           "trace": res.router_trace, "logprobs": res.logprobs,
+           "decode_tok_s": res.decode_tokens_per_s,
+           "prefill_ms": res.prefill_s * 1e3, "launches": launches,
+           "comm_ms_per_step": dec_s * 1e3 / NEW,
+           "comm_calls_per_step": dec_n / NEW,
+           "prefill_comm_ms": pre_s * 1e3, "prefill_comm_calls": pre_n,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "local_bits": {k: (s.expert_bits, s.ranks)
+                          for k, s in local[0].items()}}
+    # every expert on the card: the single-device engine, and the
+    # metadata the offload stores read
+    full, _, _ = load_compression_artifact(job["art"], job["cfg_q"],
+                                           device=dev)
+    qf, _ = apply_compressed_stacks(qp, cfg_q, full)
+    ref = ServeEngine(cfg_q, qf, quantized=True, device=dev,
+                      decode_graph=False)
+    teacher_forced(eng, ref, prompts, res.tokens, len(full), dtype)
+    out["ref"] = ref.generate(prompts, max_new=NEW)
+    if job.get("serve"):
+        out["serve"] = ep_serve_cases(eng, full, cfg.vocab_size,
+                                      job["budget"])
+        if mesh.rank == 0:
+            out["single"] = ep_serve_cases(ref, full, cfg.vocab_size,
+                                           job["budget"])
+    return out
+
+
+def first_divergence(a: np.ndarray, b: np.ndarray):
+    """(step, row) of the first token where two (B, T) streams differ."""
+    diff = np.argwhere(a != b)
+    if not len(diff):
+        return None
+    first = diff[np.argmin(diff[:, 1])]
+    return int(first[1]), int(first[0])
+
+
+def generate_divergence(name: str, got: dict, want, tol: float) -> dict:
+    """Rows of two greedy ``generate`` runs whose tokens or router traces
+    differ: each must first differ where the two runs' probabilities of
+    their own tokens agree within ``tol`` (``paged_divergence``'s near-tie
+    rule).  ``got``: an ``ep_job`` result; ``want``: a GenerationResult.
+    Returns {row: first differing step}."""
+    from types import SimpleNamespace as NS
+
+    def rows(tokens, logprobs, trace):
+        return NS(results=[NS(uid=r, tokens=tokens[r], logprobs=logprobs[r],
+                              trace=trace[:, :, r])
+                           for r in range(tokens.shape[0])])
+
+    return paged_divergence(name, rows(got["tokens"], got["logprobs"],
+                                       got["trace"]),
+                            rows(want.tokens, want.logprobs,
+                                 want.router_trace), tol, False)
+
+
+def check_ep_serve(name: str, got: dict, want: dict) -> None:
+    """(c): the mesh's serves against the single-device engine's."""
+    for key in ("serve", "per_shard"):
+        g, w = got[key], want[key]
+        if g["tokens"] != w["tokens"]:
+            fail(f"{name} {key}: tokens differ from the single-device engine")
+        if not np.array_equal(g["trace"], w["trace"]):
+            fail(f"{name} {key}: router traces differ")
+        if g["report"] != w["report"]:
+            fail(f"{name} {key}: offload report {g['report']} != the single"
+                 f"-device engine's {w['report']}")
+        rep = g["report"]
+        if rep["ep"] != 2 or sum(rep["per_shard_bytes"]) != \
+                rep["total_bytes"] or g["shard_bytes"] != \
+                rep["per_shard_bytes"]:
+            fail(f"{name} {key}: per-shard bytes {rep['per_shard_bytes']} do"
+                 f" not sum to {rep['total_bytes']}")
+    if not np.array_equal(got["per_shard"]["plan_trace"],
+                          want["per_shard"]["plan_trace"]):
+        fail(f"{name}: the per_shard budget's plan trace differs")
+    if len({str(p) for p in got["per_shard"]["plan_trace"]}) < 2:
+        fail(f"{name}: the per_shard budget never moved the plan")
+    # paged attention and the verify pass sum in other orders than the
+    # contiguous decode step: a first divergence only at an f32 near-tie,
+    # as phases 11 and 12 hold them on one device
+    from types import SimpleNamespace as NS
+    base = NS(results=got["serve"]["results"])
+    parted = {key: paged_divergence(f"{name} {key}", base,
+                                    NS(results=got[key]["results"]),
+                                    NEAR_TIE, False)
+              for key in ("paged", "spec")}
+    if not parted["paged"] and got["paged"]["report"] != \
+            got["serve"]["report"]:
+        fail(f"{name}: paged serving on the mesh metered other bytes")
+    r = got["serve"]["report"]
+    log(f"  {name} serve (8 requests, 4 slots, chunk 8, LRU 8 of 8 per "
+        f"shard): tokens, traces, hits ({r['hit_rate']:.4f}) and bytes equal"
+        f" the single-device engine metering through attach_offload(ep=2): "
+        f"total {r['total_bytes']} = per shard {r['per_shard_bytes']}; "
+        f"per_shard budget: plan trace equal over "
+        f"{len(got['per_shard']['plan_trace'])} chunks, per shard "
+        f"{got['per_shard']['report']['per_shard_bytes']}; paged (page 16) "
+        f"and speculative (k 2) = contiguous but for first divergences at "
+        f"f32 near-ties {parted}; tok/s mesh "
+        f"{got['serve']['tok_s']:.2f}, single-device eager "
+        f"{want['serve']['tok_s']:.2f}")
+
+
+def ep_line(name: str, r0: dict, r1: dict, base_tok_s: float) -> None:
+    log(f"  {name} generate on the mesh (eager loop, gloo on cuda:0): "
+        f"decode {r0['decode_tok_s']:.2f} tok/s (single-device eager "
+        f"{base_tok_s:.2f}), prefill {r0['prefill_ms']:.2f} ms; collectives "
+        f"{r0['comm_ms_per_step']:.3f} ms host per step "
+        f"({r0['comm_calls_per_step']:.1f} calls), prefill "
+        f"{r0['prefill_comm_ms']:.2f} ms ({r0['prefill_comm_calls']} "
+        f"calls); peak device memory per rank {r0['peak_gib']:.2f} / "
+        f"{r1['peak_gib']:.2f} GiB; rank start to engine "
+        f"{r0['boot_s']:.2f} s; rank 0's launches {r0['launches']}")
+
+
+def ep_phase(dev, mx_ref: dict) -> tuple:
+    """Phase 16: (a) kernel 1 on local slices; (b) + (c) Mixtral-8x7B (f32,
+    2 layers at full width, phase 3's weights through its artifact) on a
+    2-rank gloo mesh: generate = phase 3's eager loop (tokens and traces),
+    teacher-forced logits, tok/s, collectives, memory; serve, the
+    per_shard budget, paged and speculative serving against the
+    single-device engine; (d) DeepSeek-MoE-16B (bf16, EP_DEEPSEEK_LAYERS
+    deep) on the mesh under the bf16 protocol, (d') its f32 twin under
+    the f32 one; (e) the serve CLI with --mesh ep=2.  (b), (c) and (d)
+    run on one mesh of 2 ranks, one start-up.  Returns (served paths, the kernel-1 and mesh figures)."""
+    import dataclasses
+    from repro_torch.calib import save_compression_artifact
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.transformer import (compress_moe_params,
+                                                init_params)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    t = time.perf_counter()
+    fused = local_slice_cases(dev, gen)
+    log(f"  (a) took {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(deepseek_config(),
+                              num_layers=EP_DEEPSEEK_LAYERS)
+    log(f"  deepseek depth cut to {cfg.num_layers} (a dense layer 0 and "
+        f"{cfg.num_layers - 1} MoE layers), widths as published, bf16")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    _, cfg_q, stacks = compress_moe_params(params, cfg)
+    del params
+    art = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    try:
+        save_compression_artifact(art, cfg_q, stacks, seed=0)
+        del stacks
+        torch.cuda.empty_cache()
+        log(f"  deepseek compressed and written in "
+            f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        jobs = [{"cfg": mx_ref["cfg"], "cfg_q": mx_ref["cfg_q"],
+                 "dtype": torch.float32, "art": mx_ref["art"],
+                 "prompts": mx_ref["prompts"],
+                 "new": mx_ref["eager"].tokens.shape[1], "serve": True,
+                 "budget": 2.0**20},
+                {"cfg": cfg, "cfg_q": cfg_q, "dtype": torch.bfloat16,
+                 "art": art, "prompts": np.random.default_rng(2).integers(
+                     2, cfg.vocab_size, (4, 256)).astype(np.int32),
+                 "new": 32}]
+        # the same model and experts in f32: top-6 partials crossing
+        # ranks held at LOGIT_TOL, and the tokens at f32 near-ties
+        jobs.append(dict(jobs[1], dtype=torch.float32))
+        (r0, d0, f0), (r1, d1, f1) = run_ranks(ep_rank, 2, backend="gloo",
+                                               args=(jobs,))
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+    log(f"  (b), (c), (d) and (d') on one mesh of 2 ranks took "
+        f"{time.perf_counter() - t:.1f} s")
+    eager = mx_ref["eager"]
+    for r in (r0, r1):
+        d = first_divergence(r["tokens"], eager.tokens)
+        if d is not None:
+            fail(f"mixtral ep2 rank {r['rank']}: tokens part from phase 3's "
+                 f"eager loop at (step, row) {d}")
+        if not np.array_equal(r["trace"], eager.router_trace):
+            fail(f"mixtral ep2 rank {r['rank']}: router trace differs from "
+                 "phase 3's eager loop")
+    lp = float(np.abs(r0["logprobs"] - eager.logprobs).max())
+    log(f"  (b) mixtral ep2: both ranks' tokens and router traces equal "
+        f"phase 3's single-device eager loop ({eager.tokens.shape[0]} x "
+        f"{eager.tokens.shape[1]}), max |dlogprob| {lp:.3e}; teacher-forced"
+        f" against the single-device engine (above, both ranks); shard "
+        f"experts of w1 {[r['local_bits']['w1'] for r in (r0, r1)]} (bits, "
+        f"ranks)")
+    ep_line("mixtral ep2", r0, r1, eager.decode_tokens_per_s)
+    check_ep_serve("mixtral ep2", r0["serve"], r0["single"])
+    check_ep_serve("mixtral ep2 rank 1", r1["serve"], r0["single"])
+    if not np.array_equal(d1["tokens"], d0["tokens"]):
+        fail("deepseek ep2: the ranks sampled different tokens")
+    d = first_divergence(d0["tokens"], d0["ref"].tokens)
+    log(f"  (d) deepseek ep2: teacher-forced against the single-device "
+        f"engine within LOGIT_TOL_BF16 (above, both ranks); greedy tokens "
+        + ("equal the single-device engine's" if d is None else
+           f"part from the single-device engine's at (step, row) {d} "
+           f"(bf16 sums over top-6 partials in another order)"))
+    ep_line("deepseek ep2", d0, d1, d0["ref"].decode_tokens_per_s)
+    if not np.array_equal(f1["tokens"], f0["tokens"]):
+        fail("deepseek ep2 f32: the ranks sampled different tokens")
+    parted = generate_divergence("deepseek ep2 f32", f0, f0["ref"],
+                                 NEAR_TIE)
+    log(f"  (d') deepseek ep2 f32 (same weights and experts): teacher-"
+        f"forced against the single-device engine within LOGIT_TOL (above, "
+        f"both ranks); greedy tokens and traces "
+        + ("equal the single-device engine's" if not parted else
+           f"equal the single-device engine's but for first divergences at "
+           f"f32 near-ties {parted} (row: step)"))
+    ep_line("deepseek ep2 f32", f0, f1, f0["ref"].decode_tokens_per_s)
+    served = {"mixtral_ep2": {"launches": r0["launches"],
+                              "eager_launches": {}},
+              "deepseek_ep2": {"launches": d0["launches"],
+                               "eager_launches": {}},
+              "deepseek_ep2_f32": {"launches": f0["launches"],
+                                   "eager_launches": {}}}
+    figures = {}
+    for name, a, b in (("mixtral", r0, r1), ("deepseek", d0, d1),
+                       ("deepseek_f32", f0, f1)):
+        figures[name] = {k: a[k] for k in (
+            "decode_tok_s", "comm_ms_per_step", "peak_gib", "prefill_ms",
+            "prefill_comm_ms")}
+        figures[name]["peak_gib_rank1"] = b["peak_gib"]
+        figures[name]["single_device_eager_tok_s"] = (
+            eager.decode_tokens_per_s if name == "mixtral"
+            else a["ref"].decode_tokens_per_s)
+
+    t = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "mixtral-8x7b", "--requests", "6", "--slots", "2", "--chunk", "4",
+           "--max-new", "8", "--offload", "--mesh", "ep=2",
+           "--budget-scope", "per_shard", "--bytes-per-token", "20000",
+           "--dist-backend", "gloo"]
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    for line in p.stdout.strip().splitlines():
+        log(f"    cli: {line}")
+    if p.returncode != 0 or "per-shard links (ep=2)" not in p.stdout:
+        log(p.stderr[-3000:])
+        fail(f"the serve CLI with --mesh ep=2 exited {p.returncode}")
+    log(f"  (e) the serve CLI ({' '.join(cmd[2:])}) exited 0 in "
+        f"{time.perf_counter() - t:.1f} s")
+    fused["ep_figures"] = figures
+    return served, fused
+
+
 def log_top(kernels, per: int, what: str) -> None:
     """The 8 kernel names of ``profiled``'s kernels with the most device
     time, per ``what``."""
@@ -5034,6 +5520,16 @@ def main() -> int:
     table["fused_expert_matmul"]["launches_mma"] = sl["mma_launches"]
     runs["mixtral"] = {k: sl[k] for k in keys}
     mixtral = {k: sl[k] for k in ("engine", "stacks", "cfg")}
+    # phase 16 serves these weights again on a mesh of ranks, which read
+    # them from an artifact
+    from repro_torch.calib import save_compression_artifact
+    t0 = time.perf_counter()
+    mx_ref = {"cfg": sl["cut"], "cfg_q": sl["cfg"], "prompts": sl["prompts"],
+              "eager": sl["eager"],
+              "art": tempfile.mkdtemp(prefix="chip_smoke_ep_")}
+    save_compression_artifact(mx_ref["art"], sl["cfg"], sl["stacks"], seed=0)
+    log(f"  phase 3's stacks written for phase 16 in "
+        f"{time.perf_counter() - t0:.1f} s")
     del sl
     torch.cuda.empty_cache()
 
@@ -5185,6 +5681,25 @@ def main() -> int:
         f" {trained['tok_s_default_data']:.1f} tokens/s (drawn in the step,"
         f" {trained['draw_ms']:.1f} ms per draw), peak "
         f"{trained['peak_gib']:.2f} GiB")
+
+    log("== phase 16: expert-parallel serving on a mesh of 2 ranks (gloo, "
+        "every rank on cuda:0), before phase 9")
+    t16 = time.perf_counter()
+    try:
+        ep_served, ep_fused = ep_phase(dev, mx_ref)
+    finally:
+        shutil.rmtree(mx_ref["art"], ignore_errors=True)
+    for name, sv in ep_served.items():
+        for kname in ("fused_expert_matmul", "flash_decode_attention"):
+            if sv["launches"].get(kname, 0) <= 0:
+                fail(f"{name}: {kname} was never launched: {sv['launches']}")
+    served.update(ep_served)
+    errs["fused_expert_matmul"] = max(errs["fused_expert_matmul"],
+                                      ep_fused.pop("max_abs_err"))
+    table["fused_expert_matmul"].update(ep_fused)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
 
     log("== phase 9: the entry points: compress CLI -> artifact -> serve "
         "CLI (Qwen3-MoE-30B-A3B)")

@@ -16,6 +16,7 @@ import hashlib
 import json
 from typing import Dict, List, Optional, Tuple
 
+from .. import resolve_device
 from ..checkpoint.artifact import (load_artifact, register_artifact_dataclass,
                                    save_artifact)
 from ..config import ModelConfig
@@ -83,15 +84,42 @@ def save_compression_artifact(path, cfg: ModelConfig,
     return save_artifact(path, stacks_by_layer, meta=meta)
 
 
+def _stack_to(stack: CompressedExpertStack, device) -> CompressedExpertStack:
+    return dataclasses.replace(
+        stack, planes=tuple(p.to(device) for p in stack.planes),
+        **{f: getattr(stack, f).to(device)
+           for f in ("scale", "zero", "u", "v", "u_scale", "v_scale")},
+        _meta={})
+
+
 def load_compression_artifact(path, cfg: Optional[ModelConfig] = None,
-                              strict: bool = True, device=None
+                              strict: bool = True, device=None,
+                              shard: Optional[Tuple[int, int]] = None
                               ) -> Tuple[List[Dict], Optional[CompressionPlan],
                                          Dict]:
     """Load ``(stacks_by_layer, plan, manifest-meta)`` with the stacks on
     ``device`` (default: the CUDA device); when ``cfg`` is given the
     stored fingerprint must match (``strict=False`` downgrades a mismatch
-    to a manifest flag)."""
-    tree, manifest = load_artifact(path, device)
+    to a manifest flag).
+
+    ``shard=(rank, ep)``: each stack holds only that rank's contiguous
+    slice of experts (``distributed.sharding.local_expert_slice``: their
+    planes, scales and factors, their true widths and ranks), the slice
+    a rank of an ``ep``-way serving mesh serves from; only the slice
+    reaches ``device``.  The offload stores meter every expert: load
+    with ``device="meta"`` for their metadata alone."""
+    if shard is None:
+        tree, manifest = load_artifact(path, device)
+    else:
+        from ..distributed.sharding import local_expert_slice
+        tree, manifest = load_artifact(path, "cpu")
+        rank, ep = shard
+        dev = resolve_device(device)
+        tree = [{k: _stack_to(local_expert_slice(
+                    s, s.shape[0], rank, ep,
+                    prefix=f"layers/{i}/moe/stacks/{k}/"), dev)
+                 for k, s in layer.items()}
+                for i, layer in enumerate(tree)]
     meta = manifest["meta"]
     if meta.get("version") != ARTIFACT_VERSION:
         raise ValueError(f"artifact version {meta.get('version')} != "

@@ -18,7 +18,7 @@ checksummed manifest (port of ``repro/checkpoint/manager.py``'s
 ``restore(template, step, device=)`` rebuilds the template's structure
 (types, shapes and dtypes checked) on ``device`` (default: each leaf
 where the template's is); the JAX package's ``shardings`` re-shard onto
-a mesh and wait for ROADMAP A13.
+a mesh and wait for ROADMAP A13b (training on a mesh).
 """
 from __future__ import annotations
 
@@ -125,7 +125,8 @@ class CheckpointManager:
         the newest valid checkpoint unless ``step`` names one."""
         if shardings is not None:
             raise NotImplementedError("restoring onto shardings is not "
-                                      "ported yet: ROADMAP A13")
+                                      "ported yet: ROADMAP A13b (training "
+                                      "on a mesh)")
         steps = self.all_steps()
         if step is None:
             if not steps:

@@ -2,8 +2,8 @@
 
 A copy of the subset of ``repro/config.py`` that the port reads
 (``QuantConfig``, ``MoEConfig``, ``EncoderConfig``, ``ModelConfig``,
-``TrainConfig``, ``ControlConfig``, ``ServeConfig`` and
-``RANK_BUCKETS``).  Field names
+``ParallelConfig``, ``TrainConfig``, ``ControlConfig``, ``ServeConfig``
+and ``RANK_BUCKETS``).  Field names
 and defaults match the JAX package, so a config built here describes the
 same model as its JAX twin.
 """
@@ -129,6 +129,39 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    multi_pod: bool = False
+    # logical -> mesh axis rules; tried in order, first divisible rule wins.
+    rules: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+        ("batch",      ("pod", "data")),
+        ("seq",        ()),               # activation seq (opt-in seq-parallel)
+        ("moe_seq",    ("model",)),       # seq sharding inside MoE dispatch
+        ("kv_seq",     ("data",)),        # long-context KV sharding
+        ("vocab",      ("model",)),
+        ("embed",      ()),
+        ("heads",      ("model",)),
+        ("kv_heads",   ("model",)),
+        ("mlp",        ("model",)),
+        ("expert",     ("model",)),
+        ("expert_mlp", ()),
+        ("lowrank",    ()),
+        ("conv",       ()),
+        ("lru",        ("model",)),
+    )
+    remat_policy: str = "minimal"      # none | minimal | full
+    scan_layers: bool = True
+    grad_compress_bits: int = 0        # 0 = off, 8 = int8 compressed psum
+    use_shard_map_moe: bool = False    # explicit all_to_all EP path
+    donate_state: bool = True
+
+    def rule_for(self, logical: str) -> Tuple[str, ...]:
+        for name, axes in self.rules:
+            if name == logical:
+                return axes
+        return ()
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     lr: float = 3e-4
     warmup_steps: int = 100
@@ -171,8 +204,15 @@ class ControlConfig:
     min_top_n: int = 0                 # plan floor (0 = pure low-bit)
     max_top_n: int = -1                # plan ceiling (-1 = router top_k)
     rank_fracs: Tuple[float, ...] = (0.25, 0.5, 0.75, 1.0)
-    # (the JAX config's budget_scope, for expert-parallel serving, comes
-    # with that serving path)
+    # expert-parallel serving: what the bytes/token budget constrains —
+    # 'aggregate' sums every shard's link traffic (one shared host link),
+    # 'per_shard' budgets the HOTTEST shard's link (per-device links: the
+    # slowest link gates decode, so the max is the latency-relevant signal)
+    budget_scope: str = "aggregate"    # aggregate | per_shard
+
+    def __post_init__(self):
+        assert self.budget_scope in ("aggregate", "per_shard"), \
+            self.budget_scope
 
     @property
     def target_bytes_per_token(self) -> float:

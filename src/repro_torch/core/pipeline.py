@@ -55,6 +55,10 @@ class CompressedExpertStack:
     # data; built on first use
     _meta: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False,
                                            compare=False)
+    # the layer's experts [lo, hi) this stack holds when it is one rank's
+    # slice (``distributed.sharding.slice_stack``); None: all of them
+    _experts: Optional[Tuple[int, int]] = field(default=None, repr=False,
+                                                compare=False)
 
     def meta_tensors(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(expert_bits (E,) i32, ranks (E,) i32) on the stack's device."""

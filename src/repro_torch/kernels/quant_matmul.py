@@ -199,6 +199,8 @@ def fused_expert_matmul(xe: torch.Tensor, planes: Tuple[torch.Tensor, ...],
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
     plain version, unless ``require_kernel`` asks for the kernel."""
+    _check_experts(xe, planes, scale, zero, u, u_scale, v, v_scale, me, ge,
+                   expert_bits, ranks, rows)
     if not xe.is_cuda:
         if require_kernel:
             raise ValueError("the CUDA fused expert kernel needs CUDA "
@@ -210,6 +212,23 @@ def fused_expert_matmul(xe: torch.Tensor, planes: Tuple[torch.Tensor, ...],
     return _launch_fused(None, xe, planes, scale, zero, u, u_scale, v,
                          v_scale, me, ge, rank_cap, expert_bits, ranks, rows,
                          bits=bits, group_size=group_size)
+
+
+def _check_experts(xe, planes, scale, zero, u, u_scale, v, v_scale, me, ge,
+                   expert_bits, ranks, rows) -> None:
+    """Every per-expert operand holds the E experts of ``xe``: the kernel
+    reads each one's row ``e`` for e < E unchecked, so a stack with fewer
+    experts (another rank's slice) would be read past its end."""
+    E = xe.shape[0]
+    named = dict(scale=scale, zero=zero, u=u, u_scale=u_scale, v=v,
+                 v_scale=v_scale, me=me, ge=ge, expert_bits=expert_bits,
+                 ranks=ranks, rows=rows)
+    named.update({f"planes[{i}]": p for i, p in enumerate(planes)})
+    bad = {k: t.shape[0] for k, t in named.items()
+           if t is not None and t.shape[0] != E}
+    if bad:
+        raise ValueError(f"xe holds {E} experts; these operands do not: "
+                         f"{bad}")
 
 
 def _launch_fused(path: Optional[str], xe, planes, scale, zero, u, u_scale,

@@ -34,16 +34,27 @@ between chunks:
   layer, ``--stream-miss`` block | degrade, ``--stream-fallback-bits``);
 - ``--spec-k K`` (with ``--requests``): speculative decoding, ``K``
   drafted tokens per slot per round from ``--drafter`` (ngram | model |
-  self), verified in one pass (prints the ``speculative`` line).
+  self), verified in one pass (prints the ``speculative`` line);
+- ``--mesh ep=N``: expert-parallel serving — N ranks (processes, started
+  and joined here, meeting through a ``file://`` store) each serve the
+  same traffic with their slice of the experts (and of their
+  compensator factors), prefill dispatching by all-to-all and decode
+  summing resident-expert partials by all-reduce; the offload meter
+  splits into per-shard stores, and ``--budget-scope per_shard`` budgets
+  the hottest shard's link.  ``--dist-backend`` picks the collectives'
+  backend: ``nccl`` (default; one card per rank) or ``gloo`` (any number
+  of ranks on one card, or CPU ranks).  Rank 0 prints the report, with
+  the per-shard link bytes.
 
 Everything runs on ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path).  The JAX CLI's expert-parallel mesh is not ported: its
-flags raise ``NotImplementedError`` naming the ROADMAP item.  The compile
-count becomes ``ServeEngine.num_graphs`` (and ``num_spec_graphs``).
+PyTorch path).  The compile count becomes ``ServeEngine.num_graphs`` (and
+``num_spec_graphs``); a mesh engine decodes eagerly (no graphs).
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 from typing import Dict, List, Optional
 
@@ -52,10 +63,7 @@ import torch
 
 from .. import resolve_device
 from .compress import PARAMS_INIT
-
-# flags of the JAX CLI whose serving paths are not ported: the ROADMAP
-# item each waits for
-_UNPORTED = {"mesh": "A13 (expert parallelism)"}
+from .mesh import BACKENDS, make_serve_mesh, parse_mesh_spec, run_ranks
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,8 +110,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device to run on (cuda | cpu); cuda raises when "
                          "there is no CUDA device")
     ap.add_argument("--mesh", default="",
-                    help="expert-parallel serving mesh (not ported: "
-                         "ROADMAP A13)")
+                    help="expert-parallel serving mesh, e.g. 'ep=4': "
+                         "experts (and their compensator factors) "
+                         "partition over that many ranks")
+    ap.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
+                    help="collectives of --mesh: nccl (one card per rank) "
+                         "or gloo (every rank on one card, or CPU ranks)")
     # -- offload + bandwidth-budget controller ---------------------------
     ap.add_argument("--offload", action="store_true",
                     help="compress MoE experts and meter offloaded serving "
@@ -123,8 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="link bandwidth (bytes/s) for --target-tokens-per-s")
     ap.add_argument("--budget-scope", default="aggregate",
                     choices=("aggregate", "per_shard"),
-                    help="what the byte budget constrains (per_shard needs "
-                         "--mesh: not ported, ROADMAP A13)")
+                    help="what the byte budget constrains under --mesh: "
+                         "the summed links or the hottest shard's link")
     # -- async expert streaming -------------------------------------------
     ap.add_argument("--stream", action="store_true",
                     help="serve through the async expert-streaming engine "
@@ -147,18 +159,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag of an unported path."""
-    given = [("--" + n.replace("_", "-"), item)
-             for n, item in _UNPORTED.items()
-             if getattr(args, n) not in (None, "", 0, False)]
-    if args.budget_scope == "per_shard":
-        given.append(("--budget-scope per_shard", _UNPORTED["mesh"]))
-    if given:
-        flag, item = given[0]
-        raise NotImplementedError(f"{flag} is not ported yet: ROADMAP {item}")
-
-
 def main(argv: Optional[List[str]] = None) -> Dict:
     from ..registry import get_config
     ap = build_parser()
@@ -179,10 +179,38 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if args.spec_k > 0 and args.requests <= 0:
         ap.error("--spec-k needs --requests (speculative rounds run "
                  "through the continuous-batching scheduler)")
+    try:
+        ep = parse_mesh_spec(args.mesh).get("ep", 1) if args.mesh else 1
+    except ValueError as e:
+        ap.error(str(e))
+    if args.stream and ep > 1:
+        ap.error("--stream requires the single-device serving path "
+                 "(mesh-sharded streaming is not supported)")
     cfg = get_config(args.arch, reduced=not args.full_config)
     if args.offload and cfg.moe is None:
         ap.error(f"--offload needs an MoE arch; {cfg.name} has none")
+    if ep > 1:
+        # one process per shard, each running ``run``; rank 0 reports.
+        # The ranks find ``_serve_rank`` by the module's import name
+        # (under ``python -m`` this module is ``__main__``)
+        from importlib import import_module
+        rank_fn = import_module(__package__ + ".serve")._serve_rank
+        ranks = run_ranks(rank_fn, ep, backend=args.dist_backend,
+                          args=(cfg, args, ep))
+        return {"ranks": ranks, **ranks[0]}
     return run(cfg, args)
+
+
+def _serve_rank(rank: int, cfg, args, ep: int) -> Dict:
+    """One rank of ``--mesh ep=N``: its mesh, then ``run``; the other
+    ranks' output is silenced.  Returns what pickles of ``run``'s result
+    (the stats or the generation result)."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    mesh = make_serve_mesh(ep, backend=args.dist_backend,
+                           device="cpu" if args.device == "cpu" else None)
+    out = run(cfg, args, mesh=mesh)
+    return {k: out[k] for k in ("stats", "result", "load_s") if k in out}
 
 
 def load_artifact_for(cfg, args, device):
@@ -204,19 +232,20 @@ def load_artifact_for(cfg, args, device):
     return stacks_by_layer, plan, meta
 
 
-def run(cfg, args) -> Dict:
+def run(cfg, args, mesh=None) -> Dict:
     """Boot and serve on ``cfg`` (``main`` passes the registry's; a caller
-    may pass a depth-cut one).  Returns the engine, the stacks it serves
-    (with ``--offload``), the seconds the artifact took to load (with
-    ``--artifact``) and the ``ServeStats`` (``--requests``) or
-    ``GenerationResult`` (fixed batch)."""
+    may pass a depth-cut one), on one device or as one rank of ``mesh``
+    (``launch.mesh.make_serve_mesh``; every rank calls ``run`` alike).
+    Returns the engine, the stacks it serves (with ``--offload``), the
+    seconds the artifact took to load (with ``--artifact``) and the
+    ``ServeStats`` (``--requests``) or ``GenerationResult`` (fixed
+    batch)."""
     from ..config import ControlConfig, StreamConfig
     from ..models.transformer import (apply_compressed_stacks,
                                       compress_moe_params, init_params)
     from ..serve import ServeEngine, synthetic_workload
 
-    _check_ported(args)
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     if cfg.rope_kind == "mrope":
         print(f"note: {cfg.name} needs frontend inputs; serving the "
               f"text-only path")
@@ -242,21 +271,22 @@ def run(cfg, args) -> Dict:
             qparams, cfg_q, stacks_by_layer = compress_moe_params(params,
                                                                   cfg)
         del params
-        eng = ServeEngine(cfg_q, qparams, quantized=True, device=dev)
+        eng = ServeEngine(cfg_q, qparams, quantized=True, device=dev,
+                          mesh=mesh)
         eng.attach_offload(stacks_by_layer, policy="ours",
                            cache_capacity=args.cache_experts)
         if want_budget:
             eng.attach_controller(ControlConfig(
                 enabled=True, bytes_per_token=args.bytes_per_token,
                 tokens_per_s=args.target_tokens_per_s,
-                link_bw=args.link_bw))
+                link_bw=args.link_bw, budget_scope=args.budget_scope))
         if args.stream:
             eng.attach_streaming(StreamConfig(
                 enabled=True, ring_slots=args.stream_ring,
                 miss_policy=args.stream_miss,
                 fallback_bits=args.stream_fallback_bits))
     else:
-        eng = ServeEngine(cfg, params, device=dev)
+        eng = ServeEngine(cfg, params, device=dev, mesh=mesh)
     out = {"engine": eng, "stacks_by_layer": stacks_by_layer,
            "load_s": load_s}
 
@@ -298,6 +328,12 @@ def run(cfg, args) -> Dict:
                   f"{rep['bytes_per_token'] / 2**10:.1f} KiB/token, "
                   f"cache hit {rep['hit_rate']:.0%}, prefetch accuracy "
                   f"{rep['prefetch_accuracy']:.0%}")
+            if rep["ep"] > 1:
+                shares = ", ".join(f"{b / 2**10:.0f}"
+                                   for b in rep["per_shard_bytes"])
+                print(f"  per-shard links (ep={rep['ep']}): [{shares}] KiB, "
+                      f"hottest {rep['max_shard_bytes_per_token'] / 2**10:.1f}"
+                      f" KiB/token")
         sp = stats.spec_report
         if sp is not None:
             la = sp["lookahead_accuracy"]

@@ -10,8 +10,12 @@ are the entry points of an encoder-decoder model (Whisper: the batch
 carries ``enc_embeds``) and of M-RoPE positions (Qwen2-VL: ``mrope_pos``),
 which ``ServeEngine`` does not take.  Batch leaves may be numpy arrays
 or tensors; they are moved to the builder's device (default: the CUDA
-device; raises if there is none).  A mesh or a parallel config waits for
-ROADMAP A13; the dry run's abstract cells wait for A15.
+device; raises if there is none).  On an expert-parallel serving mesh
+(``launch.mesh.make_serve_mesh``) the prefill and serve steps run the MoE
+layers over the rank's local slice of experts (the params a rank holds:
+``distributed.sharding.local_expert_slice``); a train step on a mesh
+waits for ROADMAP A13b (training on a mesh), and the dry run's abstract
+cells for A15.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .. import resolve_device
-from ..config import ModelConfig, TrainConfig
+from ..config import ModelConfig, ParallelConfig, TrainConfig
 from ..models import model as lm
 from ..models.transformer import ExecContext
 from ..optim.adamw import OptState, adamw_update
@@ -37,10 +41,23 @@ def make_context(cfg: ModelConfig, mode: str, *, quantized: bool = False,
                  kernel_impl: Optional[str] = None,
                  collect_trace: bool = False,
                  collect_moe_inputs: bool = False) -> ExecContext:
-    if mesh is not None or pcfg is not None:
-        raise NotImplementedError("a mesh or a parallel config is not "
-                                  "ported yet: ROADMAP A13")
-    return ExecContext(mode=mode, quantized=quantized, remat=remat,
+    """The forward pass's context.  With a serving ``mesh`` (a
+    ``launch.mesh.ServeMesh``) an MoE model's layers run expert-parallel:
+    ``ep_mode`` is 'replicated' in step mode (decode: resident-expert
+    partials + all-reduce) and 'a2a' at prefill; ``pcfg`` maps the
+    logical axes (default ``ParallelConfig()``)."""
+    ep_mode, moe_fn = "none", None
+    if mesh is not None:
+        if mode == "train":
+            raise NotImplementedError(
+                "a train step on a mesh is not ported yet: ROADMAP A13b "
+                "(training on a mesh)")
+        if cfg.moe is not None:
+            from ..distributed.moe_parallel import make_moe_ep_fn
+            ep_mode = "replicated" if mode == "step" else "a2a"
+            moe_fn = make_moe_ep_fn(mesh, pcfg or ParallelConfig())
+    return ExecContext(mode=mode, quantized=quantized, ep_mode=ep_mode,
+                       moe_ep_fn=moe_fn, remat=remat,
                        exact_capacity=exact_capacity,
                        remat_policy=remat_policy, kernel_impl=kernel_impl,
                        collect_trace=collect_trace,

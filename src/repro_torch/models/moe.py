@@ -1,10 +1,24 @@
-"""Mixture-of-Experts layer with router-guided low-rank restoration,
-single-shard path (port of ``repro/models/moe.py``).
+"""Mixture-of-Experts layer with router-guided low-rank restoration
+(port of ``repro/models/moe.py``).
 
 Routing is softmax-then-top-k; dispatch scatters (T, d) tokens into
 (E, C, d) expert buffers by index; each (expert, slot) carries a 0/1
 top-n compensation mask; the expert FFN is run by a backend from
 ``models.expert_backend``; combine gathers and scatter-adds back.
+
+Three paths share that core:
+
+- ``moe_apply`` (single shard, all experts);
+- ``moe_apply_ep_a2a`` (prefill): tokens local, experts sharded over
+  the ranks of a ``launch.mesh.ServeMesh``; two all-to-alls move the
+  dispatched slots to their expert's rank and back;
+- ``moe_apply_ep_replicated`` (decode): tokens replicated; each rank
+  runs only its resident experts (``moe_ep_replicated_partial``, which
+  needs no process group) and an all-reduce sums the partials.
+
+In the expert-parallel paths ``params`` holds the rank's LOCAL slice of
+experts (``distributed.sharding.local_expert_slice``) and the whole
+router.
 """
 from __future__ import annotations
 
@@ -174,5 +188,113 @@ def moe_apply(x2: torch.Tensor, params: Dict, mcfg: MoEConfig, *,
     ye = backend(xe, params, me, act, rank_cap=rank_cap, gates=ge,
                  rows=disp.rows)
     y = combine_tokens(ye, disp, t, pre_weighted=fuse)
+    aux = aux_losses(info, mcfg) if with_aux else {}
+    return y.to(x2.dtype), aux, info
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel paths (``comm``: a ``launch.mesh.ServeMesh``)
+# ---------------------------------------------------------------------------
+
+def moe_apply_ep_a2a(x2: torch.Tensor, params: Dict, mcfg: MoEConfig, comm,
+                     *, act: str = "silu", quantized: bool = False,
+                     impl: Optional[str] = None,
+                     backend: Optional[ExpertBackend] = None,
+                     plan: Optional[torch.Tensor] = None,
+                     exact_capacity: bool = False, with_aux: bool = True
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                RoutingInfo]:
+    """Tokens local, experts sharded over ``comm``'s ranks: dispatch into
+    (E, C, d) slots, all-to-all so that each rank receives its E/ep
+    experts' slots from every rank ((E/ep, ep * C, d), source-rank major
+    along the slots, as JAX's tiled ``all_to_all`` concatenates), run the
+    experts, all-to-all back and combine.  ``exact_capacity`` dispatches
+    at capacity = local tokens (drop-free).  Aux losses are averaged
+    over the ranks."""
+    t, d = x2.shape
+    ep = comm.ep
+    e_total = mcfg.num_experts
+    e_local = e_total // ep
+    backend = backend or select_backend(params, quantized, impl)
+    info = route(x2, params["router"], mcfg)
+    cap = _capacity(t, mcfg, exact_capacity)
+    top_n, rank_cap = _plan_knobs(mcfg, quantized, plan)
+    disp = make_dispatch(info, e_total, cap, top_n)
+    xe, me = dispatch_tokens(x2, disp, e_total)            # (E, C, d)
+    fuse = backend.fuses_gates
+    ge = dispatch_gates(disp, e_total) if fuse else None
+
+    def to_experts(a):
+        # (E, C, ...) -> (E/ep, ep * C, ...): rank j's slots of my experts
+        # land at [j * C, (j + 1) * C)
+        r = comm.all_to_all(a)
+        r = r.reshape((ep, e_local) + a.shape[1:]).transpose(0, 1)
+        return r.reshape((e_local, ep * a.shape[1]) + a.shape[2:])
+
+    xe, me = to_experts(xe), to_experts(me)
+    ge = to_experts(ge) if ge is not None else None
+    # slots from several ranks are not leading-contiguous: no row counts
+    ye = backend(xe, params, me, act, rank_cap=rank_cap, gates=ge)
+    # (E/ep, ep * C, d) -> (E, C, d): each rank's slots back to it
+    ye = ye.reshape(e_local, ep, cap, d).transpose(0, 1)
+    ye = comm.all_to_all(ye.reshape(e_total, cap, d))
+    y = combine_tokens(ye, disp, t, pre_weighted=fuse)
+    aux = {}
+    if with_aux:
+        aux = {k: comm.all_reduce(v.reshape(1))[0] / ep
+               for k, v in aux_losses(info, mcfg).items()}
+    return y.to(x2.dtype), aux, info
+
+
+def moe_ep_replicated_partial(x2: torch.Tensor, params: Dict,
+                              mcfg: MoEConfig, rank: int, ep: int, *,
+                              act: str = "silu", quantized: bool = False,
+                              impl: Optional[str] = None,
+                              backend: Optional[ExpertBackend] = None,
+                              plan: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, RoutingInfo]:
+    """Rank ``rank`` of ``ep``'s share of the decode path: every token
+    routed, global expert ids mapped into the rank's slice (experts of
+    other ranks to an out-of-bounds sentinel expert whose slots are cut
+    off), the resident E/ep experts run at exact capacity.  Returns the
+    (T, d) partial output and the routing; the partials of all ranks sum
+    to ``moe_apply``'s output.  Needs no process group."""
+    t = x2.shape[0]
+    e_local = mcfg.num_experts // ep
+    backend = backend or select_backend(params, quantized, impl)
+    info = route(x2, params["router"], mcfg)
+    local = info.topk_idx - rank * e_local
+    oob = (local < 0) | (local >= e_local)
+    local = torch.where(oob, torch.full_like(local, e_local), local)
+    local_info = RoutingInfo(torch.where(oob, torch.zeros_like(info.gates),
+                                         info.gates), local, info.probs,
+                             info.logits)
+    top_n, rank_cap = _plan_knobs(mcfg, quantized, plan)
+    disp = make_dispatch(local_info, e_local + 1, t, top_n)
+    xe, me = dispatch_tokens(x2, disp, e_local + 1)
+    fuse = backend.fuses_gates
+    ge = dispatch_gates(disp, e_local + 1)[:e_local] if fuse else None
+    ye = backend(xe[:e_local], params, me[:e_local], act, rank_cap=rank_cap,
+                 gates=ge, rows=disp.rows[:e_local])
+    ye = torch.cat([ye, torch.zeros_like(ye[:1])], dim=0)
+    return combine_tokens(ye, disp, t, pre_weighted=fuse), info
+
+
+def moe_apply_ep_replicated(x2: torch.Tensor, params: Dict, mcfg: MoEConfig,
+                            comm, *, act: str = "silu",
+                            quantized: bool = False,
+                            impl: Optional[str] = None,
+                            backend: Optional[ExpertBackend] = None,
+                            plan: Optional[torch.Tensor] = None,
+                            with_aux: bool = True
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                       RoutingInfo]:
+    """Decode path: tokens replicated over ``comm``'s ranks; each rank's
+    resident-expert partial (``moe_ep_replicated_partial``), summed by an
+    all-reduce."""
+    y, info = moe_ep_replicated_partial(
+        x2, params, mcfg, comm.rank, comm.ep, act=act, quantized=quantized,
+        impl=impl, backend=backend, plan=plan)
+    y = comm.all_reduce(y)
     aux = aux_losses(info, mcfg) if with_aux else {}
     return y.to(x2.dtype), aux, info

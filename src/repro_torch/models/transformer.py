@@ -20,7 +20,7 @@ recomputes each decoder layer in the backward pass
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -56,6 +56,12 @@ class ExecContext:
     """Runtime knobs threaded through the forward pass."""
     mode: str = "train"              # train | prefill | step
     quantized: bool = False          # serve on compressed experts
+    # expert parallelism (``launch.steps.make_context(mesh=)``): 'a2a'
+    # (prefill) | 'replicated' (decode) run the MoE block through
+    # ``moe_ep_fn`` (``distributed.moe_parallel``) over the rank's local
+    # slice of experts
+    ep_mode: str = "none"            # none | a2a | replicated
+    moe_ep_fn: Optional[Callable] = None
     exact_capacity: bool = False     # drop-free MoE (C = T)
     # expert/attention kernel dispatch: 'auto' | 'cuda' | 'ref'
     kernel_impl: Optional[str] = None
@@ -65,7 +71,8 @@ class ExecContext:
     # calibration pass (calib/stats.py) accumulates its statistics on them
     collect_moe_inputs: bool = False
     # recompute each decoder layer in the backward pass; 'full' only (the
-    # JAX package's 'dots' policy serves its dry run: ROADMAP A15)
+    # JAX package's 'dots' policy serves its dry run: ROADMAP A15,
+    # tooling)
     remat: bool = False
     remat_policy: str = "full"       # full | dots
 
@@ -725,12 +732,17 @@ def apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, ctx: ExecContext,
         return x + _post_ffn(y, p, cfg), {}, None, None
     mp = p["moe"]
     b, s, d = h.shape
-    y2, aux, info = moe_apply(
-        h.reshape(-1, d), mp, cfg.moe, act=cfg.act,
-        quantized=ctx.quantized and "stacks" in mp,
-        exact_capacity=ctx.exact_capacity, impl=ctx.kernel_impl,
-        plan=plan_row, with_aux=ctx.mode == "train")
-    y = y2.reshape(b, s, d)
+    if ctx.moe_ep_fn is not None and ctx.ep_mode != "none":
+        # the experts of this rank's slice; the plan row is data that
+        # every rank applies alike
+        y, aux, info = ctx.moe_ep_fn(h, mp, cfg, ctx, plan_row)
+    else:
+        y2, aux, info = moe_apply(
+            h.reshape(-1, d), mp, cfg.moe, act=cfg.act,
+            quantized=ctx.quantized and "stacks" in mp,
+            exact_capacity=ctx.exact_capacity, impl=ctx.kernel_impl,
+            plan=plan_row, with_aux=ctx.mode == "train")
+        y = y2.reshape(b, s, d)
     moe_in = h.reshape(-1, d).float() if ctx.collect_moe_inputs else None
     if "shared" in mp:
         # shared experts: every token, uncompressed, on the same input
@@ -753,7 +765,7 @@ def _remat(fn, ctx: ExecContext):
     if ctx.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy {ctx.remat_policy!r} is not ported yet: ROADMAP "
-            f"A15 (only the dry run asks for it)")
+            f"A15 (tooling: only the dry run asks for it)")
 
     def run(*args, **kwargs):
         return checkpoint(fn, *args, use_reentrant=False, **kwargs)

@@ -254,14 +254,170 @@ class ExpertStore:
         return (self.cache.stats.bytes_moved + self.comp_bytes_moved
                 + self.prefetch_bytes)
 
+    @property
+    def shard_totals(self) -> np.ndarray:
+        """(1,) per-shard wire bytes — the single-shard degenerate form of
+        ``ShardedExpertStore.shard_totals`` so reduction code is uniform."""
+        return np.asarray([self.total_bytes], np.int64)
 
-def make_expert_stores(stacks_by_layer: List[Dict], *,
-                       cache_capacity: int = 4) -> List[ExpertStore]:
-    """Per-layer stores for serving, one ``ExpertStore`` per MoE layer
-    (the JAX package's expert-parallel ``ShardedExpertStore`` split comes
-    with expert-parallel serving, not ported yet)."""
-    return [ExpertStore(stacks, cache_capacity=cache_capacity)
-            for stacks in stacks_by_layer]
+
+# ---------------------------------------------------------------------------
+# expert-parallel sharded store
+# ---------------------------------------------------------------------------
+
+class ShardedExpertStore:
+    """EP partition of one MoE layer's store: ``ep`` per-shard
+    ``ExpertStore``s, shard ``s`` owning the contiguous expert slice
+    ``[s * E/ep, (s+1) * E/ep)`` — the same partition ``shard_map`` gives
+    the device-side expert weights (``distributed/moe_parallel.py``).
+
+    Each shard meters only its *resident* experts' wire bytes over its
+    own device LRU and host link; a token's top-k fans out across the
+    owning shards with the global rank positions preserved, so the
+    router-guided ``top_n`` compensation decision is identical to the
+    single-store path.  Aggregate properties reduce the per-shard
+    counters for reports and the bandwidth controller; ``shard_totals``
+    exposes the unreduced per-link bytes for the controller's
+    ``per_shard`` budget scope and ``ServeStats``.
+
+    Byte conservation: residency state (device LRU + resident compensator
+    rank caps) is per-expert within a shard, and every expert belongs to
+    exactly one shard at any shard count — so as long as no shard evicts
+    (per-shard ``cache_capacity`` >= its E/ep residents), total demand +
+    compensator bytes for the same routing trace are EXACTLY equal across
+    shard counts (pinned by tests).  Under eviction pressure, totals may
+    legitimately differ: partitioning the LRU changes cache locality,
+    on real hardware as here.
+    """
+
+    def __init__(self, stacks: Dict[str, CompressedExpertStack], ep: int,
+                 cache_capacity: int = 4):
+        num_experts = next(iter(stacks.values())).scale.shape[0]
+        if ep < 1 or num_experts % ep:
+            raise ValueError(f"{num_experts} experts do not partition over "
+                             f"ep={ep} shards")
+        self.stacks = stacks
+        self.ep = ep
+        self.num_experts = num_experts
+        self.experts_per_shard = num_experts // ep
+        self.shards = [ExpertStore(stacks, cache_capacity=cache_capacity)
+                       for _ in range(ep)]
+        self.wasted_prefetch_bytes = 0
+
+    def _owner(self, e: int) -> int:
+        return int(e) // self.experts_per_shard
+
+    def expert_bytes(self, e: int, policy: str) -> int:
+        return self.shards[0].expert_bytes(e, policy)
+
+    def compensator_bytes(self, e: int, rank_cap: Optional[int] = None
+                          ) -> int:
+        return self.shards[0].compensator_bytes(e, rank_cap)
+
+    def access_token(self, topk: np.ndarray, top_n: int, policy: str,
+                     rank_cap: Optional[int] = None) -> int:
+        """Meter one token's fetches across the owning shards.
+
+        Foreign experts are masked to -1 *in place of their rank
+        position* before each shard's access, so ``rank < top_n``
+        compensates exactly the assignments the single-store path would.
+        """
+        topk = np.asarray(topk)
+        total = 0
+        for s, shard in enumerate(self.shards):
+            lo = s * self.experts_per_shard
+            local = np.where((topk >= lo)
+                             & (topk < lo + self.experts_per_shard),
+                             topk, -1)
+            if (local >= 0).any():
+                total += shard.access_token(local, top_n=top_n,
+                                            policy=policy, rank_cap=rank_cap)
+        return total
+
+    def prefetch(self, experts: Iterable[int], policy: str
+                 ) -> Dict[int, int]:
+        """Route predicted experts to their owning shard's prefetcher."""
+        fetched: Dict[int, int] = {}
+        for e in experts:
+            e = int(e)
+            if e < 0:
+                continue
+            fetched.update(self.shards[self._owner(e)].prefetch([e], policy))
+        return fetched
+
+    # -- transfer-engine plumbing ------------------------------------------
+    def attach_engine(self, hook):
+        """Attach one transfer-engine hook to every shard.  Expert
+        ownership is disjoint across shards, so the shared per-layer
+        engine state (containers, ring, ledger) sees each expert's
+        events from exactly one shard."""
+        for s in self.shards:
+            s.attach_engine(hook)
+
+    def absorb_external_copy(self, e: int, nbytes: int,
+                             comp_rank: Optional[int] = None,
+                             comp_bytes: int = 0) -> int:
+        return self.shards[self._owner(e)].absorb_external_copy(
+            e, nbytes, comp_rank=comp_rank, comp_bytes=comp_bytes)
+
+    @property
+    def observed_copies(self) -> int:
+        return sum(s.observed_copies for s in self.shards)
+
+    @property
+    def observed_copy_bytes(self) -> int:
+        return sum(s.observed_copy_bytes for s in self.shards)
+
+    # -- aggregate views (same API surface as ExpertStore) -----------------
+    @property
+    def comp_bytes_moved(self) -> int:
+        return sum(s.comp_bytes_moved for s in self.shards)
+
+    @property
+    def prefetch_bytes(self) -> int:
+        return sum(s.prefetch_bytes for s in self.shards)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(s.total_bytes for s in self.shards)
+
+    @property
+    def shard_totals(self) -> np.ndarray:
+        """(ep,) wire bytes that crossed each shard's link."""
+        return np.asarray([s.total_bytes for s in self.shards], np.int64)
+
+    @property
+    def cache(self):
+        """Aggregated cache-stats facade (``snapshot_offload`` reads
+        ``store.cache.stats``); hit/miss/fetch counts sum exactly because
+        every expert access lands on exactly one shard."""
+        agg = FetchStats(
+            bytes_moved=sum(s.cache.stats.bytes_moved for s in self.shards),
+            fetches=sum(s.cache.stats.fetches for s in self.shards),
+            hits=sum(s.cache.stats.hits for s in self.shards),
+            misses=sum(s.cache.stats.misses for s in self.shards))
+        return _CacheView(agg)
+
+
+@dataclasses.dataclass
+class _CacheView:
+    stats: FetchStats
+
+
+def make_expert_stores(stacks_by_layer: List[Dict], *, ep: int = 1,
+                       cache_capacity: int = 4) -> List:
+    """Per-layer stores for serving: plain ``ExpertStore``s at ``ep=1``
+    (or when the expert count does not partition — the engine's GSPMD
+    fallback path), ``ShardedExpertStore``s otherwise."""
+    stores = []
+    for stacks in stacks_by_layer:
+        e = next(iter(stacks.values())).scale.shape[0]
+        if ep > 1 and e % ep == 0:
+            stores.append(ShardedExpertStore(stacks, ep,
+                                             cache_capacity=cache_capacity))
+        else:
+            stores.append(ExpertStore(stacks, cache_capacity=cache_capacity))
+    return stores
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +425,11 @@ def make_expert_stores(stacks_by_layer: List[Dict], *,
 # ---------------------------------------------------------------------------
 
 def snapshot_offload(stores: List[ExpertStore], prefetcher=None) -> Dict:
-    """Cumulative store/prefetcher counters, for delta-based reports."""
+    """Cumulative store/prefetcher counters, for delta-based reports.
+
+    ``per_shard`` is the element-wise sum of every store's
+    ``shard_totals`` — the per-link wire bytes under expert-parallel
+    sharding, a length-1 vector for plain single-shard stores."""
     return {
         "demand": sum(s.cache.stats.bytes_moved for s in stores),
         "comp": sum(s.comp_bytes_moved for s in stores),
@@ -278,6 +438,8 @@ def snapshot_offload(stores: List[ExpertStore], prefetcher=None) -> Dict:
         "total": sum(s.total_bytes for s in stores),
         "hits": sum(s.cache.stats.hits for s in stores),
         "misses": sum(s.cache.stats.misses for s in stores),
+        "per_shard": sum(np.asarray(s.shard_totals, np.int64)
+                         for s in stores),
         # observed transfer-engine copies (0 until streaming is attached);
         # the oracle pins observed == total per store, so these columns
         # let reports cross-check metered traffic against real copies
@@ -294,6 +456,7 @@ def offload_report(stores: List[ExpertStore], prefetcher, snap: Dict,
     now = snapshot_offload(stores, prefetcher)
     d = {k: now[k] - snap[k] for k in now}
     issued = d["pf_issued"]
+    per_shard = np.asarray(d["per_shard"], np.int64).reshape(-1)
     return {
         "policy": policy,
         "tokens": tokens,
@@ -306,12 +469,12 @@ def offload_report(stores: List[ExpertStore], prefetcher, snap: Dict,
         "hit_rate": d["hits"] / max(d["hits"] + d["misses"], 1),
         "prefetch_accuracy": (d["pf_useful"] / max(issued, 1)
                               if prefetcher is not None else None),
-        # the JAX report's expert-parallel columns in their single-link
-        # form (expert-parallel serving is not ported): one link carries
-        # every byte
-        "ep": 1,
-        "per_shard_bytes": [int(d["total"])],
-        "max_shard_bytes_per_token": int(d["total"]) / max(tokens, 1),
+        # expert-parallel reduction: per-link traffic + the hottest link
+        # (what the controller's per_shard budget scope targets)
+        "ep": int(per_shard.shape[0]),
+        "per_shard_bytes": [int(b) for b in per_shard],
+        "max_shard_bytes_per_token": (int(per_shard.max())
+                                      / max(tokens, 1)),
         "observed_copy_bytes": int(d["observed"]),
         "observed_copies": int(d["copies"]),
     }

@@ -160,7 +160,9 @@ class BandwidthController:
         return self._level
 
     # -- feedback ----------------------------------------------------------
-    def update(self, nbytes: int, tokens: int) -> ControllerPlan:
+    def update(self, nbytes: int, tokens: int,
+               shard_bytes: Optional[Sequence[int]] = None
+               ) -> ControllerPlan:
         """Consume one chunk's metered wire bytes; return the next plan.
 
         The per-chunk bytes/token sample is EMA-smoothed (chunk-scale LRU
@@ -169,10 +171,20 @@ class BandwidthController:
         proportional jumps limit-cycle around the budget instead of
         settling.  Driven purely by byte counters (no wall-clock), so the
         same trace + budget reproduces the same plan sequence exactly.
-        (The JAX controller's per-shard budget scope comes with
-        expert-parallel serving, not ported yet.)
+
+        ``shard_bytes`` is the chunk's per-shard link traffic under
+        expert-parallel serving.  With ``ControlConfig.budget_scope ==
+        'per_shard'`` the controlled signal becomes the HOTTEST shard's
+        bytes/token (each device has its own host link; the slowest link
+        gates decode), so the budget is a per-link ceiling rather than an
+        aggregate.  The aggregate scope (default) ignores it — and since
+        per-shard totals sum to the aggregate, the plan sequence is then
+        independent of the shard count.
         """
         self._chunks += 1
+        if (self.ccfg.budget_scope == "per_shard"
+                and shard_bytes is not None and len(shard_bytes) > 0):
+            nbytes = int(np.max(np.asarray(shard_bytes)))
         measured = nbytes / tokens if tokens > 0 else 0.0
         target = self.ccfg.target_bytes_per_token
         if self.active and tokens > 0:

@@ -1,8 +1,8 @@
 """Batched serving engine: bucketed prefill, a decode loop with sampling
 on the device, continuous-batching request serving over a contiguous or
-a paged KV cache, speculative draft/verify rounds, and the router-trace
-export (port of ``repro/serve/engine.py`` without its expert-parallel
-mesh).
+a paged KV cache, speculative draft/verify rounds, expert-parallel
+serving over a mesh of ranks, and the router-trace export (port of
+``repro/serve/engine.py``).
 
 Prompts right-pad to a power-of-two length and the padded cache slots
 are invalidated afterwards (``mask_cache_padding``), so padded decode
@@ -62,6 +62,22 @@ a snapshot of the caches until it matches the all-resident path
 (``miss_policy='block'``) or served by the fallback ('degrade').  The
 containers are written in place, so the decode graphs captured after
 ``attach_streaming`` keep reading them.
+
+With a serving mesh (``mesh=launch.mesh.make_serve_mesh(ep)``, inside a
+rank of ``launch.mesh.run_ranks``) every rank runs this engine on the
+same inputs: the MoE experts (their planes, scales and compensator
+factors) are cut to the rank's contiguous slice, everything else is
+replicated, prefill dispatches tokens to their experts' ranks by
+all-to-all and decode sums resident-expert partials by all-reduce
+(``distributed/moe_parallel.py``).  The ranks sample alike (greedy, or
+one seeded generator each) and check at every chunk boundary that they
+did.  ``attach_offload`` splits each layer's store into per-shard
+stores, identical on every rank (the same trace replays into them), and
+``ServeStats.shard_bytes`` / ``offload_report['per_shard_bytes']`` carry
+the per-link bytes the controller's ``per_shard`` budget scope reads.  A
+mesh engine decodes with the eager loop: a collective of the gloo
+backend is a host call that no CUDA graph can hold, and graph capture on
+an NCCL mesh waits for ROADMAP A13c.
 """
 from __future__ import annotations
 
@@ -74,7 +90,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..config import ControlConfig, ModelConfig, ServeConfig
+from ..config import ControlConfig, ModelConfig, ParallelConfig, ServeConfig
+from ..distributed.moe_parallel import ep_size
+from ..distributed.sharding import local_expert_slice
+from ..launch.steps import make_context
 from ..models import model as lm
 from ..models.kvcache import is_paged
 from ..models.transformer import (ExecContext, cache_claim_slot,
@@ -168,6 +187,9 @@ class ServeStats:
     # (chunks, moe_layers, 2) per-chunk controller plan [top_n, rank_cap]
     # (None when no bandwidth controller is attached)
     plan_trace: Optional[np.ndarray] = None
+    # (ep,) wire bytes that crossed each expert-parallel shard's link
+    # (the per-shard reduction; length 1 on the single-device path)
+    shard_bytes: Optional[np.ndarray] = None
     # device bytes held by the serve run's slot caches (every plane,
     # page pools, block tables and pool position planes on the paged path)
     cache_hbm_bytes: int = 0
@@ -302,13 +324,21 @@ class ServeEngine:
                  quantized: bool = False, collect_router_trace: bool = True,
                  kernel_impl: Optional[str] = None,
                  cache_dtype: Optional[torch.dtype] = None, device=None,
-                 decode_graph: Optional[bool] = None):
+                 decode_graph: Optional[bool] = None, mesh=None,
+                 pcfg: Optional[ParallelConfig] = None):
         """``params`` must live on ``device`` (default: the CUDA device;
         raises if there is none).  ``kernel_impl``: 'auto' | 'cuda' |
         'ref' (see ``kernels.ops``).  ``decode_graph``: replay each
         bucket's decode step as a captured CUDA graph (None: on a CUDA
         engine; True on a CPU engine raises; False keeps the eager
-        loop)."""
+        loop).
+
+        ``mesh``: this rank's expert-parallel serving mesh
+        (``launch.mesh.make_serve_mesh``; its device is the engine's).
+        ``params`` may hold every expert (the engine keeps the rank's
+        slice) or the rank's slice already; a mesh engine runs the eager
+        loop, and ``decode_graph=True`` on one raises
+        ``NotImplementedError`` (ROADMAP A13c)."""
         if cfg.encoder is not None:
             raise ValueError(
                 f"{cfg.name} is an encoder-decoder model: ServeEngine takes "
@@ -319,13 +349,27 @@ class ServeEngine:
         if tok.device.type != self.device.type:
             raise ValueError(f"params are on {tok.device}, engine device "
                              f"is {self.device}")
+        if mesh is not None and decode_graph:
+            raise NotImplementedError(
+                "decode graphs on an expert-parallel mesh are not ported "
+                "yet: ROADMAP A13c (graph capture on NCCL meshes); a mesh "
+                "engine runs the eager loop")
         if decode_graph and self.device.type != "cuda":
             raise ValueError("decode_graph=True needs a CUDA engine; the "
                              f"engine device is {self.device}")
-        self.decode_graph = (self.device.type == "cuda"
+        if mesh is not None and torch.device(mesh.device) != self.device:
+            raise ValueError(f"the mesh serves on {mesh.device}, the engine "
+                             f"on {self.device}")
+        self.decode_graph = (self.device.type == "cuda" and mesh is None
                              if decode_graph is None else bool(decode_graph))
         self.cfg = cfg
         self.scfg = scfg or ServeConfig()
+        self.mesh = mesh
+        self.pcfg = pcfg or ParallelConfig()
+        self.ep = ep_size(mesh)
+        if mesh is not None and cfg.moe is not None:
+            params = local_expert_slice(params, cfg.moe.num_experts,
+                                        mesh.rank, mesh.ep, self.pcfg)
         self.params = params
         self.quantized = quantized
         self.kernel_impl = kernel_impl
@@ -338,17 +382,14 @@ class ServeEngine:
         # recurrent state cannot invalidate padding afterwards, so such
         # plans prefill each prompt at its exact length
         self._pad_prompts = all_global(cfg)
-        self._prefill_ctx = ExecContext(mode="prefill", quantized=quantized,
-                                        exact_capacity=True,
-                                        kernel_impl=kernel_impl)
-        self._step_ctx = ExecContext(mode="step", quantized=quantized,
-                                     exact_capacity=True,
-                                     kernel_impl=kernel_impl,
-                                     collect_trace=self.collect_router_trace)
+        ctx = dict(quantized=quantized, exact_capacity=True,
+                   kernel_impl=kernel_impl, mesh=mesh, pcfg=self.pcfg)
+        self._prefill_ctx = make_context(cfg, "prefill", **ctx)
+        self._step_ctx = make_context(
+            cfg, "step", collect_trace=self.collect_router_trace, **ctx)
         # prefill with the router trace: streaming stages what it routed to
-        self._prefill_traced_ctx = ExecContext(
-            mode="prefill", quantized=quantized, exact_capacity=True,
-            kernel_impl=kernel_impl, collect_trace=True)
+        self._prefill_traced_ctx = make_context(cfg, "prefill",
+                                                collect_trace=True, **ctx)
         # resident caches by (batch, cache length), paged slot caches by
         # (slots, pages, page size, blocks per slot)
         self._caches: Dict[Tuple[int, int], Dict] = {}
@@ -602,15 +643,18 @@ class ServeEngine:
             d = self.decode(logits, caches, max_new, seed, plan)
         self._sync()
         t_decode = time.perf_counter() - t1
+        tokens = d.tokens.cpu().numpy()
+        self._check_ranks(tokens)
         trace = None if d.trace is None else d.trace.cpu().numpy()
         report = None
         if trace is not None and self._stores:
             report = self._meter_offload(trace, plan)
             if self._controller is not None:
                 self._controller.update(report["total_bytes"],
-                                        report["tokens"])
+                                        report["tokens"],
+                                        shard_bytes=report["per_shard_bytes"])
         return GenerationResult(
-            d.tokens.cpu().numpy(), d.logprobs.cpu().numpy(), t_prefill,
+            tokens, d.logprobs.cpu().numpy(), t_prefill,
             t_decode, max_new, router_trace=trace, capture_s=d.capture_s,
             offload_report=report,
             stream_report=(self._stream.report()
@@ -620,22 +664,32 @@ class ServeEngine:
     def attach_offload(self, stacks_by_layer: List[Dict],
                        policy: str = "ours",
                        cache_capacity: Optional[int] = None,
-                       prefetch: bool = True):
+                       prefetch: bool = True, ep: Optional[int] = None):
         """Meter every generated token's expert fetches through per-layer
         host-side ``ExpertStore``s (LRU device cache + compensator bytes).
 
         As in the JAX engine, the stores start afresh and so does the
         prefetcher when ``prefetch``; an attached controller stays (its
         level and history carry on over the new stores) unless
-        ``scfg.control.enabled`` attaches a new one.  (The stores'
-        expert-parallel split of the JAX engine's serving mesh is not
-        ported.)"""
+        ``scfg.control.enabled`` attaches a new one.
+
+        ``ep`` (default: the mesh's expert-parallel degree, 1 without
+        one) partitions each layer's store into per-shard sub-stores
+        matching the expert placement: each shard meters only its
+        resident experts' wire bytes over its own device LRU, and the
+        per-shard counters reduce into ``ServeStats`` (``shard_bytes``,
+        ``offload_report['per_shard_bytes']``) and feed the bandwidth
+        controller's ``budget_scope``.  It works without a mesh too (the
+        same routing, metered per link).  On a mesh every rank keeps the
+        same stores (``stacks_by_layer`` holds every expert, or its
+        metadata) and replays the same trace into them."""
         from ..offload.prefetch import LayerAheadPrefetcher
         from ..offload.store import make_expert_stores
         cap = (self.scfg.cache_experts if cache_capacity is None
                else cache_capacity)
-        self._stores = make_expert_stores(stacks_by_layer,
-                                          cache_capacity=cap)
+        self._stores = make_expert_stores(
+            stacks_by_layer, ep=self.ep if ep is None else ep,
+            cache_capacity=cap)
         self._offload_policy = policy
         if prefetch:
             self._prefetcher = LayerAheadPrefetcher(len(stacks_by_layer),
@@ -676,6 +730,10 @@ class ServeEngine:
             raise ValueError("attach_offload must be called before "
                              "attach_streaming (the stream engine is "
                              "driven by its metered stores)")
+        if self.mesh is not None:
+            raise ValueError("streaming requires the single-device serving "
+                             "path; expert-parallel byte accounting still "
+                             "works via attach_offload(ep=...)")
         if not self.collect_router_trace:
             raise ValueError("streaming detects misses from the router "
                              "trace; collect_router_trace must be on")
@@ -730,6 +788,19 @@ class ServeEngine:
 
     def _current_plan(self) -> Optional[ControllerPlan]:
         return self._controller.plan() if self._controller else None
+
+    def _shard_totals(self) -> np.ndarray:
+        """(ep,) cumulative wire bytes per expert-parallel shard link,
+        reduced over layers (length 1 for unsharded stores)."""
+        if not self._stores:
+            return np.zeros((1,), np.int64)
+        return sum(np.asarray(s.shard_totals, np.int64)
+                   for s in self._stores)
+
+    def _check_ranks(self, tokens: np.ndarray) -> None:
+        """On a mesh, raise unless every rank sampled ``tokens``."""
+        if self.mesh is not None:
+            self.mesh.check_same(tokens, "the sampled tokens")
 
     def _meter_offload(self, trace: np.ndarray, plan=None) -> Dict:
         """Feed decode routing (steps, layers, B, k) into the stores under
@@ -1158,7 +1229,8 @@ class ServeEngine:
                                         k=spec_k),
                     cfg, target_params=self.params,
                     target_quantized=self.quantized,
-                    kernel_impl=self.kernel_impl, device=self.device)
+                    kernel_impl=self.kernel_impl, device=self.device,
+                    moe_ep_fn=self._prefill_ctx.moe_ep_fn)
             next_t1 = np.zeros((num_slots,), np.int32)
             # the admission bonus samples' own generator, as JAX keeps an
             # admission key beside the round key
@@ -1309,6 +1381,7 @@ class ServeEngine:
                 toks = d.tokens.cpu().numpy()            # (S, chunk)
                 lps = d.logprobs.cpu().numpy()
                 tr = None if d.trace is None else d.trace.cpu().numpy()
+            self._check_ranks(toks)
             decode_s += time.perf_counter() - td
             chunks += 1
             if plan is not None:
@@ -1355,6 +1428,7 @@ class ServeEngine:
             if self._stores:
                 tm = time.perf_counter()
                 before = sum(s.total_bytes for s in self._stores)
+                shard_before = self._shard_totals()
                 if spec_on:
                     # lookahead warms cover every live round position
                     # (rejected ones included: the wasted speculation the
@@ -1384,9 +1458,12 @@ class ServeEngine:
                     self._stream.flush_unclaimed()
                 if self._controller is not None:
                     # chunk boundary: the chunk's wire bytes (demand +
-                    # compensator + prefetch) close the control loop
+                    # compensator + prefetch) close the control loop;
+                    # per-shard deltas feed the per_shard budget scope
                     moved = sum(s.total_bytes for s in self._stores) - before
-                    self._controller.update(moved, ntok)
+                    self._controller.update(
+                        moved, ntok,
+                        shard_bytes=self._shard_totals() - shard_before)
                 meter_s += time.perf_counter() - tm
 
         total_s = time.perf_counter() - t0
@@ -1420,6 +1497,8 @@ class ServeEngine:
             offload_report=report,
             router_trace=np.concatenate(traces) if traces else None,
             plan_trace=np.stack(plans) if plans else None,
+            shard_bytes=(np.asarray(report["per_shard_bytes"], np.int64)
+                         if report is not None else None),
             cache_hbm_bytes=cache_hbm, prefill_tokens=prefill_tok,
             page_report=pool.report() if pool is not None else None,
             meter_s=meter_s, capture_s=capture_s,
@@ -1443,9 +1522,9 @@ class ServeEngine:
     @torch.no_grad()
     def score(self, tokens: np.ndarray) -> float:
         """Mean next-token NLL (perplexity proxy) under the serving path:
-        one train-mode forward over (B, S) tokens."""
-        ctx = ExecContext(mode="train", quantized=self.quantized,
-                          exact_capacity=True, kernel_impl=self.kernel_impl)
+        one train-mode forward over (B, S) tokens (on a mesh, the MoE
+        layers dispatch by all-to-all as at prefill)."""
+        ctx = dataclasses.replace(self._prefill_ctx, mode="train")
         toks = torch.as_tensor(np.asarray(tokens, np.int32),
                                device=self.device)
         out = lm.forward(self.params, toks, self.cfg, ctx)

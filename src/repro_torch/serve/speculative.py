@@ -172,18 +172,25 @@ class DraftModelDrafter:
     tail per proposal step (a cache-free forward: no draft KV
     cache to keep in sync with the target's commit and rollback) and
     extends with its argmax ``k`` times.  Proposals are point-mass: the
-    verify pass applies the same rejection rule as the n-gram path."""
+    verify pass applies the same rejection rule as the n-gram path.
+
+    ``moe_ep_fn`` (``distributed.moe_parallel.make_moe_ep_fn``): the MoE
+    layers of ``params`` hold one rank's slice of the experts, and the
+    forward dispatches into them by all-to-all, as a mesh engine's
+    prefill does."""
 
     def __init__(self, cfg: ModelConfig, params, window: int = 32,
                  kernel_impl: Optional[str] = None,
-                 quantized: bool = False):
+                 quantized: bool = False, moe_ep_fn=None):
         from ..models.transformer import ExecContext
         self.cfg = cfg
         self.params = params
         self.window = int(window)
         self.device = params["embed"]["tok"].device
-        self._ctx = ExecContext(mode="train", quantized=quantized,
-                                exact_capacity=True, kernel_impl=kernel_impl)
+        self._ctx = ExecContext(
+            mode="train", quantized=quantized, exact_capacity=True,
+            kernel_impl=kernel_impl, moe_ep_fn=moe_ep_fn,
+            ep_mode="none" if moe_ep_fn is None else "a2a")
         self._hist: Dict[int, List[int]] = {}
 
     @classmethod
@@ -204,13 +211,13 @@ class DraftModelDrafter:
     @classmethod
     def self_draft(cls, cfg: ModelConfig, params, *, window: int = 64,
                    quantized: bool = False,
-                   kernel_impl: Optional[str] = None
+                   kernel_impl: Optional[str] = None, moe_ep_fn=None
                    ) -> "DraftModelDrafter":
         """Draft with the serving model itself (windowed re-read): the
         idealized high-acceptance drafter, so lookahead-prefetch numbers
         isolate the prefetcher from drafter quality."""
         return cls(cfg, params, window=window, kernel_impl=kernel_impl,
-                   quantized=quantized)
+                   quantized=quantized, moe_ep_fn=moe_ep_fn)
 
     def reset_slot(self, slot: int, prompt_tokens: np.ndarray):
         self._hist[slot] = np.asarray(prompt_tokens).reshape(-1) \
@@ -249,11 +256,13 @@ class DraftModelDrafter:
 
 def make_drafter(spec: SpecConfig, target_cfg: ModelConfig, *,
                  target_params=None, target_quantized: bool = False,
-                 kernel_impl: Optional[str] = None, device=None):
+                 kernel_impl: Optional[str] = None, device=None,
+                 moe_ep_fn=None):
     """Resolve a SpecConfig drafter name into a drafter instance: 'ngram'
     needs nothing beyond the config; 'model' builds the small random-init
     dense stand-in on ``device``; 'self' re-reads the target itself and
-    needs the target's params."""
+    needs the target's params (and, when they are a mesh rank's, the
+    engine's ``moe_ep_fn``)."""
     if spec.drafter == "ngram":
         return NGramDrafter(order=spec.ngram_order)
     if spec.drafter == "self":
@@ -261,7 +270,8 @@ def make_drafter(spec: SpecConfig, target_cfg: ModelConfig, *,
             "'self' drafter needs the target model's params"
         return DraftModelDrafter.self_draft(
             target_cfg, target_params, window=spec.draft_window,
-            quantized=target_quantized, kernel_impl=kernel_impl)
+            quantized=target_quantized, kernel_impl=kernel_impl,
+            moe_ep_fn=moe_ep_fn)
     return DraftModelDrafter.from_target(target_cfg,
                                          window=spec.draft_window,
                                          kernel_impl=kernel_impl,

@@ -90,6 +90,9 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, *,
     """Train from ``init_fn(tcfg.seed)`` (default: ``init_params`` from
     the seed) on ``device`` (default: the CUDA device; raises if there is
     none), resuming from ``checkpoint_dir``'s latest valid checkpoint."""
+    if mesh is not None or pcfg is not None:
+        raise NotImplementedError("train(mesh=, pcfg=) is not ported yet: "
+                                  "ROADMAP A13b (training on a mesh)")
     dev = resolve_device(device)
     data = data or SyntheticLM(SyntheticLMConfig(
         vocab_size=cfg.vocab_size, batch_size=batch_shape[0],

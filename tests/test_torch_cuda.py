@@ -1817,3 +1817,64 @@ def test_adamw_step_matches_cpu(dev):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-8)
     assert float(out["cuda"][2]["grad_norm"]) == pytest.approx(
         float(out["cpu"][2]["grad_norm"]), rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: kernel 1 on a shard's experts, a 2-rank mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ep", [2, 4])
+@pytest.mark.parametrize("c", [4, 130])
+def test_fused_kernel_on_local_slices_matches_full_rows(dev, c, ep):
+    """Each shard's experts (their own widths and ranks) through kernel 1
+    give the full-E call's rows for those experts, on the decode kernel
+    (C 4) and the tensor-core tile (C 130)."""
+    E, R = 8, 48
+    args = list(_fused_args(dev, E, c, 256, 260, R, 3, gated=True, cap=None,
+                            eb=[3, 2, 1, 3, 2, 3, 1, 2], seed=c + ep))
+    args[12] = torch.tensor([R, 0, R // 2, 7, R, 1, 0, 30],
+                            dtype=torch.int32, device=dev)
+    full = qm.fused_expert_matmul(*args, bits=3, group_size=64,
+                                  require_kernel=True)
+    el = E // ep
+    for s in range(ep):
+        lo, hi = s * el, (s + 1) * el
+        sl = [a if a is None or i == 10 else
+              (tuple(p[lo:hi] for p in a) if isinstance(a, tuple)
+               else a[lo:hi]) for i, a in enumerate(args)]
+        got = qm.fused_expert_matmul(*sl, bits=3, group_size=64,
+                                     require_kernel=True)
+        want = qm.fused_expert_matmul_plain(*sl, bits=3, group_size=64)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, full[lo:hi], **FUSED_TOL)
+        torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+def test_mesh_generate_matches_single_device_on_card(dev, tmp_path):
+    """Reduced Mixtral-8x7B on a 2-rank gloo mesh, both ranks on cuda:0,
+    each with its slice of the experts from an artifact: the single-device
+    eager loop's tokens and router trace, log-probs within 1e-5 (top-2
+    over 2 ranks: each token's sum has at most two nonzero terms)."""
+    import torch_ep_worker
+    from repro_torch.calib import save_compression_artifact
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.transformer import (compress_moe_params,
+                                                init_params)
+    from repro_torch.registry import get_config
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("mixtral-8x7b", reduced=True)
+    params = init_params(cfg, seed=0, dtype=torch.float32)
+    qp, cfg_q, stacks = compress_moe_params(params, cfg)
+    save_compression_artifact(tmp_path, cfg_q, stacks, seed=0)
+    prompts = _prompts(cfg, 3, 21)
+    want = ServeEngine(cfg_q, qp, quantized=True, decode_graph=False) \
+        .generate(prompts, 8)
+    ranks = run_ranks(torch_ep_worker.card_ranks, 2, backend="gloo",
+                      args=({"cfg": cfg, "cfg_q": cfg_q, "art": str(tmp_path),
+                             "prompts": prompts, "new": 8},))
+    for r in ranks:
+        np.testing.assert_array_equal(r["tokens"], want.tokens)
+        np.testing.assert_array_equal(r["trace"], want.router_trace)
+        np.testing.assert_allclose(r["logprobs"], want.logprobs, rtol=1e-5,
+                                   atol=1e-5)
+        assert r["comm_calls"] > 0

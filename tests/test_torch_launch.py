@@ -3,8 +3,7 @@ Mixtral-8x7B: ``repro_torch.launch.compress`` (calibrate → allocate →
 compress → artifact) and ``repro_torch.launch.serve --offload --artifact``
 booting that artifact.  Serving from the artifact must give the tokens,
 router trace, offload report and per-request bytes of serving the
-stacks ``compress.run`` returned in memory; the flags of the JAX CLI's
-unported paths raise ``NotImplementedError`` naming their ROADMAP item;
+stacks ``compress.run`` returned in memory;
 the stream flags serve with every metered byte copied; ``--page-size``
 (with ``--prefix-cache``) serves the same tokens on a paged cache;
 ``--spec-k`` / ``--drafter`` serve the same greedy tokens speculatively.
@@ -153,16 +152,6 @@ def test_serve_cli_prefix_cache_needs_page_size():
     with pytest.raises(SystemExit):
         serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
                     "--prefix-cache"])
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "ep=4"], "A13"),
-    (["--budget-scope", "per_shard"], "A13"),
-])
-def test_unported_flags_name_their_item(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2"]
-                   + flags)
 
 
 @pytest.mark.parametrize("flags", [

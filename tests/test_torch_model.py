@@ -87,11 +87,11 @@ def test_train_config_copy_matches_jax():
 
 
 def test_serve_and_control_config_copies_match_jax():
-    """``ControlConfig`` is a copy without ``budget_scope`` (it budgets
-    expert-parallel serving, not ported); ``StreamConfig`` and
-    ``SpecConfig`` are copies (fields, defaults, asserts); ``ServeConfig``
-    keeps a subset of the JAX fields, each with the JAX default
-    (``control``, ``stream`` and ``spec`` included)."""
+    """``ControlConfig``, ``StreamConfig`` and ``SpecConfig`` are copies
+    (fields, defaults, asserts; ``budget_scope`` included since the
+    port serves expert-parallel); ``ServeConfig`` keeps a subset of the
+    JAX fields, each with the JAX default (``control``, ``stream`` and
+    ``spec`` included)."""
     from repro.config import ControlConfig as JControlConfig
     from repro.config import ServeConfig as JServeConfig
     from repro.config import SpecConfig as JSpecConfig
@@ -103,7 +103,9 @@ def test_serve_and_control_config_copies_match_jax():
              (dict(miss_policy="drop"), dict(ring_slots=0))),
             (SpecConfig, JSpecConfig,
              (dict(k=-1), dict(drafter="oracle"), dict(ngram_order=1),
-              dict(draft_window=0)))):
+              dict(draft_window=0))),
+            (ControlConfig, JControlConfig,
+             (dict(budget_scope="hottest"),))):
         assert [(f.name, f.default) for f in dataclasses.fields(port_cls)] \
             == [(f.name, f.default) for f in dataclasses.fields(jax_cls)]
         for bad in bads:
@@ -111,12 +113,8 @@ def test_serve_and_control_config_copies_match_jax():
                 jax_cls(**bad)
             with pytest.raises(AssertionError):
                 port_cls(**bad)
-    assert [f.name for f in dataclasses.fields(ControlConfig)] == \
-        [f.name for f in dataclasses.fields(JControlConfig)
-         if f.name != "budget_scope"]
-    jdefaults = dataclasses.asdict(JControlConfig())
-    assert jdefaults.pop("budget_scope") == "aggregate"
-    assert dataclasses.asdict(ControlConfig()) == jdefaults
+    assert dataclasses.asdict(ControlConfig()) == \
+        dataclasses.asdict(JControlConfig())
     cc = dict(enabled=True, bytes_per_token=0.0, tokens_per_s=2e3)
     assert ControlConfig(**cc).target_bytes_per_token == \
         JControlConfig(**cc).target_bytes_per_token
@@ -126,8 +124,19 @@ def test_serve_and_control_config_copies_match_jax():
                     "stream", "spec"}
     port, jax_ = dataclasses.asdict(ServeConfig()), \
         dataclasses.asdict(JServeConfig())
-    jax_["control"].pop("budget_scope")
     assert port.items() <= jax_.items()
+
+
+def test_parallel_config_copy_matches_jax():
+    """``ParallelConfig`` is a copy: fields, defaults (the logical-axis
+    rules) and ``rule_for``."""
+    from repro.config import ParallelConfig as JParallelConfig
+    from repro_torch.config import ParallelConfig
+    assert [(f.name, f.default) for f in dataclasses.fields(ParallelConfig)] \
+        == [(f.name, f.default) for f in dataclasses.fields(JParallelConfig)]
+    for name, _ in JParallelConfig().rules + (("nothing", ()),):
+        assert ParallelConfig().rule_for(name) == \
+            JParallelConfig().rule_for(name)
 
 
 def _run_both(quantized: bool, impl: str, kv_bits: int = 16):
@@ -219,7 +228,9 @@ def test_port_imports_neither_jax_nor_repro():
                 "tree.py", "optim/adamw.py", "train/loop.py",
                 "train/microbatch.py", "data/packing.py",
                 "checkpoint/manager.py", "launch/steps.py",
-                "launch/train.py"):
+                "launch/train.py", "launch/mesh.py",
+                "distributed/__init__.py", "distributed/sharding.py",
+                "distributed/moe_parallel.py"):
         assert f"src/repro_torch/{mod}" in names, mod
     for f in files:
         for name in _imports(f):
